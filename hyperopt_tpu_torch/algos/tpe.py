@@ -1,0 +1,429 @@
+"""Tree-structured Parzen Estimator.
+
+Reference parity (SURVEY.md §2 #11): ``hyperopt/tpe.py`` —
+``adaptive_parzen_normal`` (~L40-200), ``GMM1``/``GMM1_lpdf``/``LGMM1``/
+``LGMM1_lpdf`` + q-variants (~L200-520), categorical posterior (~L520-570),
+per-dist posterior builders (~L570-720), ``ap_split_trials`` γ-quantile
+split (~L720-770), ``suggest(new_ids, domain, trials, seed, prior_weight,
+n_startup_jobs, n_EI_candidates, gamma, linear_forgetting, verbose)``
+(~L890-1000).
+
+Each label's posterior step — Parzen fit of l(x) and g(x), candidate draw
+from l(x), log l − log g scoring, argmax — runs on the device over the
+device-resident history (``tpe_device``), one label-stacked pass per
+distribution family, with the O(candidates × history) pair score in a
+hand-written CUDA kernel.
+
+Config is the reference's *partial-as-config* pattern:
+``functools.partial(tpe.suggest, gamma=0.3, n_EI_candidates=1000)``.
+Every entry point here runs on the CUDA card unless ``device="cpu"`` is
+passed.
+"""
+
+from __future__ import annotations
+
+import logging
+
+import numpy as np
+import torch
+
+from ..base import miscs_update_idxs_vals
+from ..device import resolve_device
+from ..ops import gmm as gmm_ops
+from ..ops import parzen as parzen_ops
+from ..vectorize import branch_activity, idxs_vals_from_batch
+from . import rand
+
+logger = logging.getLogger(__name__)
+
+# -- defaults: module-level, overridable via functools.partial (the
+#    reference's public config surface)
+_default_prior_weight = 1.0
+_default_n_startup_jobs = 20
+_default_n_EI_candidates = 24
+_default_gamma = 0.25
+_default_linear_forgetting = 25
+
+EPS = 1e-12
+
+
+# ---------------------------------------------------------------------
+# Reference-compatible numpy-facing wrappers (public API + test surface)
+# ---------------------------------------------------------------------
+
+
+def linear_forgetting_weights(N, LF):
+    """Chronological ramp weights (oldest N−LF ramp from 1/N to 1)."""
+    assert N >= 0
+    assert LF > 0
+    if N == 0:
+        return np.asarray([])
+    if N < LF:
+        return np.ones(N)
+    ramp = np.linspace(1.0 / N, 1.0, num=N - LF)
+    return np.concatenate([ramp, np.ones(LF)])
+
+
+def _row(a, device):
+    return torch.tensor(np.asarray(a, np.float32), device=device)[None]
+
+
+def adaptive_parzen_normal(
+    mus, prior_weight, prior_mu, prior_sigma, LF=_default_linear_forgetting,
+    device=None,
+):
+    """Fit the adaptive Parzen mixture (numpy in/out).
+
+    Returns (weights, mus, sigmas) sorted by mu with the prior inserted —
+    the reference's contract."""
+    dev = resolve_device(device)
+    obs = np.asarray(mus, dtype=np.float64)
+    if obs.ndim != 1:
+        raise TypeError("mus must be a vector", mus)
+    n = len(obs)
+    buf = np.zeros(parzen_ops.bucket(n), dtype=np.float32)
+    buf[:n] = obs
+    w, m, s = parzen_ops.adaptive_parzen_normal_padded(
+        _row(buf, dev),
+        torch.tensor([n], device=dev),
+        float(np.float32(prior_weight)),
+        _row([prior_mu], dev)[0],
+        _row([prior_sigma], dev)[0],
+        int(LF) if LF else 0,
+    )
+    k = n + 1
+    return tuple(t[0, :k].cpu().numpy() for t in (w, m, s))
+
+
+def _generator(rng, device):
+    """A ``torch.Generator`` on ``device`` from a seed, a numpy Generator
+    (one draw from it) or None (fresh entropy)."""
+    if rng is None:
+        rng = np.random.default_rng()
+    if isinstance(rng, np.random.Generator):
+        rng = int(rng.integers(2 ** 31 - 1))
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(rng))
+    return gen
+
+
+def _bounds(low, high, device):
+    lo = -np.inf if low is None else float(low)
+    hi = np.inf if high is None else float(high)
+    return _row([lo], device)[0], _row([hi], device)[0]
+
+
+def _gmm1_sample(weights, mus, sigmas, low, high, q, rng, size, log_scale, device):
+    dev = resolve_device(device)
+    w, m, s = (_row(a, dev) for a in (weights, mus, sigmas))
+    n = int(np.prod(size)) if size != () else 1
+    lo, hi = _bounds(low, high, dev)
+    gen = _generator(rng, dev)
+    u = torch.rand((2, 1, n), generator=gen, device=dev)
+    x = gmm_ops.gmm_sample(u[0], u[1], w, m, s, lo, hi, _row([q or 0.0], dev)[0],
+                           log_scale)
+    x = x[0].cpu().numpy().astype(np.float64)
+    return x.reshape(size) if size != () else float(x[0])
+
+
+def _gmm1_lpdf(samples, weights, mus, sigmas, low, high, q, log_scale, device):
+    dev = resolve_device(device)
+    x = np.atleast_1d(np.asarray(samples, dtype=np.float32)).ravel()
+    w, m, s = (_row(a, dev) for a in (weights, mus, sigmas))
+    lo, hi = _bounds(low, high, dev)
+    ll = gmm_ops.gmm_lpdf(_row(x, dev), w, m, s, lo, hi, _row([q or 0.0], dev)[0],
+                          log_scale, q is not None)
+    return ll[0].cpu().numpy().astype(np.float64).reshape(np.shape(samples))
+
+
+def GMM1(weights, mus, sigmas, low=None, high=None, q=None, rng=None, size=(),
+         device=None):
+    """Sample from the truncated 1-D GMM (reference signature)."""
+    return _gmm1_sample(weights, mus, sigmas, low, high, q, rng, size, False, device)
+
+
+def GMM1_lpdf(samples, weights, mus, sigmas, low=None, high=None, q=None,
+              device=None):
+    """Log-density under the truncated GMM (reference signature)."""
+    return _gmm1_lpdf(samples, weights, mus, sigmas, low, high, q, False, device)
+
+
+def LGMM1(weights, mus, sigmas, low=None, high=None, q=None, rng=None, size=(),
+          device=None):
+    """Sample from the truncated 1-D log-GMM (bounds in log space)."""
+    return _gmm1_sample(weights, mus, sigmas, low, high, q, rng, size, True, device)
+
+
+def LGMM1_lpdf(samples, weights, mus, sigmas, low=None, high=None, q=None,
+               device=None):
+    """Log-density under the truncated log-GMM (reference signature)."""
+    return _gmm1_lpdf(samples, weights, mus, sigmas, low, high, q, True, device)
+
+
+# ---------------------------------------------------------------------
+# γ-quantile split
+# ---------------------------------------------------------------------
+
+
+def ap_split_trials(loss_tids, losses, gamma, gamma_cap=_default_linear_forgetting):
+    """Split completed-trial ids into (below, above) the γ-quantile.
+
+    ``n_below = min(ceil(γ·√N), gamma_cap)`` — the reference's rule
+    (``hyperopt/tpe.py — ap_split_trials`` ~L720-770).
+    """
+    losses = np.asarray(losses, dtype=np.float64)
+    n = len(losses)
+    n_below = int(np.ceil(gamma * np.sqrt(n)))
+    if gamma_cap is not None:
+        n_below = min(n_below, int(gamma_cap))
+    order = np.argsort(losses, kind="stable")
+    below = frozenset(int(t) for t in np.asarray(loss_tids)[order[:n_below]])
+    return below
+
+
+# ---------------------------------------------------------------------
+# suggest
+# ---------------------------------------------------------------------
+
+
+def _label_uniforms(seed, n_labels, n, device):
+    """``[n_labels, 2, n]`` f32 uniforms: per label, the component-pick and
+    value-draw streams, from that label's own ``torch.Generator`` on
+    ``device``.  Label ``i``'s generator is seeded from child ``i`` of
+    ``np.random.SeedSequence(seed)``, so a label's stream depends on
+    ``(seed, label index)`` alone."""
+    out = torch.empty((n_labels, 2, n), dtype=torch.float32, device=device)
+    for i, child in enumerate(np.random.SeedSequence(int(seed)).spawn(n_labels)):
+        gen = torch.Generator(device=device)
+        gen.manual_seed(int(child.generate_state(1, np.uint32)[0]))
+        out[i] = torch.rand((2, n), generator=gen, device=device)
+    return out
+
+
+# bounded-quantized families with at most this many grid values score on
+# the bucket grid (one exact lpdf per DISTINCT value, gathered per
+# candidate) instead of per candidate — see tpe_device n_buckets
+_MAX_GRID_BUCKETS = 4096
+
+
+def _family_bucket_count(fam, n_candidates):
+    """Distinct-value count for a bounded quantized family (the max over
+    its labels, +3 margin for grid-edge rounding), or 0 when any label is
+    unbounded, the grid exceeds _MAX_GRID_BUCKETS, or it is not smaller
+    than the candidate count (no saving).
+
+    Computed from the family's DEFAULT priors, never lock-narrowed ones,
+    so it stays fixed across suggests.  An over-wide grid is always safe —
+    ``j0``/bounds place and mask it."""
+    priors = fam.default_priors
+    n_max = 0
+    for i in range(fam.L):
+        lo, hi, q = float(priors[i, 2]), float(priors[i, 3]), float(priors[i, 4])
+        if not (np.isfinite(lo) and np.isfinite(hi)) or q <= 0:
+            return 0
+        if fam.log_scale:
+            lo, hi = np.exp(lo), np.exp(hi)
+        n = int(np.ceil((hi - lo) / q)) + 3
+        if n > _MAX_GRID_BUCKETS:
+            return 0
+        n_max = max(n_max, n)
+    if n_max >= n_candidates:
+        return 0  # grid would cost more than per-candidate scoring
+    return n_max
+
+
+def _emit_docs(new_ids, domain, trials, chosen_vals, k):
+    """Branch activity (DNF over chosen choice values) + trial docs."""
+    specs = domain.space.specs
+    active = branch_activity(specs, chosen_vals, k)
+    idxs, vals = idxs_vals_from_batch(new_ids, chosen_vals, active, specs)
+    miscs = [
+        {"tid": tid, "cmd": domain.cmd, "workdir": domain.workdir, "idxs": {}, "vals": {}}
+        for tid in new_ids
+    ]
+    miscs_update_idxs_vals(miscs, idxs, vals)
+    results = [domain.new_result() for _ in new_ids]
+    return trials.new_trial_docs(new_ids, [None] * k, results, miscs)
+
+
+def _suggest_device(
+    new_ids,
+    domain,
+    trials,
+    hist,
+    seed,
+    prior_weight,
+    n_EI_candidates,
+    gamma,
+    linear_forgetting,
+    param_locks,
+    trial_filter,
+    device,
+):
+    """The production suggest path: device-resident history, one
+    label-stacked pass per distribution family, O(k) host↔device traffic
+    per call and one readback (see :mod:`.tpe_device`)."""
+    from . import tpe_device as td
+
+    new_ids = list(new_ids)
+    k = len(new_ids)
+    lf = int(linear_forgetting) if linear_forgetting else 0
+    n_cand = int(n_EI_candidates)
+
+    dh = td.device_history_for(trials, domain.space, device)
+    dev = dh.device
+    dh.sync(hist)
+
+    mask = None
+    if trial_filter is not None:
+        mask = trial_filter(hist) if callable(trial_filter) else trial_filter
+        mask = np.asarray(mask, dtype=bool)
+        if mask.shape != hist.loss_tids.shape:
+            raise ValueError(
+                f"trial_filter mask shape {mask.shape} != history {hist.loss_tids.shape}"
+            )
+        if not mask.any():
+            mask = None
+    n_eff = int(mask.sum()) if mask is not None else len(hist.losses)
+    n_below = int(np.ceil(gamma * np.sqrt(n_eff)))
+    if linear_forgetting is not None:  # ap_split_trials gamma_cap semantics
+        n_below = min(n_below, int(linear_forgetting))
+    cap_b = parzen_ops.bucket(max(n_below, 1))
+    keep_mask = dh.keep_mask(mask)
+
+    uniforms = _label_uniforms(seed, dh.n_labels, k * n_cand, dev)
+    specs = domain.space.specs
+
+    # hard locks: value pinned, posterior skipped (activity still derived)
+    hard = {}
+    if param_locks:
+        for lb, (center, radius) in param_locks.items():
+            if radius <= 0:
+                spec = specs[lb]
+                if spec.is_integer or spec.dist in ("randint", "categorical"):
+                    hard[lb] = np.full(k, int(round(center)), np.int64)
+                else:
+                    hard[lb] = np.full(k, float(center), np.float64)
+
+    def upload(a):
+        return torch.as_tensor(a, device=dev)
+
+    requests, req_fams = [], []
+    for fam in dh.families.values():
+        u = uniforms[fam.kis]
+        lock_c = np.zeros(fam.L, np.float32)
+        lock_r = np.full(fam.L, np.inf, np.float32)
+        if fam.key[0] == "cont":
+            priors = fam.default_priors
+            if param_locks:
+                priors = priors.copy()
+                for i, lb in enumerate(fam.labels):
+                    lock = param_locks.get(lb)
+                    if lock is None or lock[1] <= 0:
+                        continue
+                    center, radius = lock
+                    c_fit = (
+                        float(np.log(max(center, EPS)))
+                        if fam.log_scale
+                        else float(center)
+                    )
+                    lo = max(float(priors[i, 2]), c_fit - radius)
+                    hi = min(float(priors[i, 3]), c_fit + radius)
+                    if lo < hi:  # neighborhood inside support: narrow
+                        priors[i, 0] = np.clip(c_fit, lo, hi)
+                        priors[i, 1] = min(float(priors[i, 1]), 2.0 * radius)
+                        priors[i, 2], priors[i, 3] = lo, hi
+                        lock_c[i], lock_r[i] = c_fit, radius
+            st = dict(
+                cap_b=cap_b, k=k, n_cand=n_cand, lf=lf,
+                log_scale=fam.log_scale, quantized=fam.quantized,
+                n_buckets=_family_bucket_count(fam, k * n_cand) if fam.quantized else 0,
+            )
+            requests.append((
+                "cont",
+                (u, fam.obs, fam.pos, fam.counts, dh.losses, keep_mask, n_below,
+                 float(np.float32(prior_weight)), upload(priors), upload(lock_c),
+                 upload(lock_r)),
+                st,
+            ))
+        else:
+            if param_locks:
+                for i, lb in enumerate(fam.labels):
+                    lock = param_locks.get(lb)
+                    if lock is not None and lock[1] > 0:
+                        lock_c[i] = float(lock[0] - fam.offsets[i])
+                        lock_r[i] = float(lock[1])
+            requests.append((
+                "idx",
+                (u, fam.obs, fam.pos, fam.counts, dh.losses, keep_mask, n_below,
+                 float(np.float32(prior_weight)), upload(fam.prior_p), upload(lock_c),
+                 upload(lock_r)),
+                dict(cap_b=cap_b, upper=fam.upper, k=k, n_cand=n_cand, lf=lf),
+            ))
+        req_fams.append(fam)
+
+    outs, _diags = td.multi_family_suggest(requests)
+    chosen_vals = {}
+    for fam, best in zip(req_fams, outs):
+        for i, lb in enumerate(fam.labels):
+            if lb not in hard:
+                chosen_vals[lb] = fam.from_fit_space(i, best[i])
+    chosen_vals.update(hard)
+    return _emit_docs(new_ids, domain, trials, chosen_vals, k)
+
+
+def suggest(
+    new_ids,
+    domain,
+    trials,
+    seed,
+    prior_weight=_default_prior_weight,
+    n_startup_jobs=_default_n_startup_jobs,
+    n_EI_candidates=_default_n_EI_candidates,
+    gamma=_default_gamma,
+    linear_forgetting=_default_linear_forgetting,
+    verbose=True,
+    param_locks=None,
+    trial_filter=None,
+    device=None,
+):
+    """TPE suggest: draw candidates from l(x), rank by log l(x) − log g(x).
+
+    ``device``: where the history lives and the suggest runs (None: the
+    CUDA card; ``"cpu"`` runs the plain PyTorch versions of the kernels).
+
+    ``param_locks``: optional ``{label: (center, radius)}`` — the ATPE
+    "cascade" (reference ``hyperopt/atpe.py`` ~L300-700):
+
+    - ``radius <= 0``: HARD lock — the label's value is pinned to
+      ``center``; the posterior is skipped for it, but branch activity is
+      still derived from the final values.
+    - ``radius > 0``: SOFT lock — the candidate-sampling bounds are
+      narrowed to ``center ± radius``, the prior recentered there, and the
+      observation sets filtered to the neighborhood before the Parzen
+      fits.  ``center`` is a raw-space value; for log-scale labels the
+      radius is in log space.
+
+    ``trial_filter``: optional boolean mask aligned with
+    ``trials.history.loss_tids`` (or a callable ``hist -> mask``) —
+    restricts which completed trials feed the posterior.
+    """
+    dev = resolve_device(device)
+    hist = trials.history
+    # Startup gate on ALL inserted non-error trials (reference semantics:
+    # ``len(trials.trials)``), not completed-OK count; random suggest also
+    # while the OK history is empty (nothing to fit a posterior on).
+    if len(trials.trials) < n_startup_jobs or len(hist.losses) == 0:
+        return rand.suggest(new_ids, domain, trials, seed, device=dev)
+
+    if not domain.space.compiled:
+        logger.warning(
+            "space not compilable (%s): tpe falling back to random suggest",
+            domain.space.compile_error,
+        )
+        return rand.suggest(new_ids, domain, trials, seed, device=dev)
+
+    return _suggest_device(
+        new_ids, domain, trials, hist, seed, prior_weight, n_EI_candidates,
+        gamma, linear_forgetting, param_locks, trial_filter, dev,
+    )

@@ -1,0 +1,918 @@
+"""Core runtime: trial documents, the Trials store, Ctrl, and Domain.
+
+Reference parity (SURVEY.md §2 #6): ``hyperopt/base.py`` — ``STATUS_*`` /
+``JOB_STATE_*`` (~L40-90), ``SONify`` (~L90-130), ``miscs_update_idxs_vals``/
+``miscs_to_idxs_vals``/``spec_from_misc`` (~L130-210), ``validate_timeout``/
+``validate_loss_threshold`` (~L210-240), ``Trials`` (~L240-640),
+``trials_from_docs`` (~L640-660), ``Ctrl`` (~L660-740), ``Domain``
+(~L740-1000).
+
+Design notes:
+- ``Domain.__init__`` compiles the space once via
+  :class:`hyperopt_tpu_torch.vectorize.CompiledSpace` (replacing the reference's
+  ``VectorizeHelper`` graph rewrite); algorithms consume the compiled
+  sampler, never re-interpreting the graph per suggest.
+- ``Trials`` additionally maintains a **struct-of-arrays history cache**
+  (per-label contiguous value/tid arrays + aligned loss arrays) rebuilt
+  incrementally on ``refresh`` so TPE's device plane consumes history
+  without per-suggest Python document walking.
+"""
+
+from __future__ import annotations
+
+import datetime
+import logging
+import numbers
+
+import numpy as np
+
+from .exceptions import (
+    AllTrialsFailed,
+    InvalidLoss,
+    InvalidResultStatus,
+    InvalidTrial,
+)
+from .pyll.base import GarbageCollected, as_apply, rec_eval
+from .utils import coarse_utcnow, pmin_sampled, use_obj_for_literal_in_memo
+from .vectorize import CompiledSpace
+
+logger = logging.getLogger(__name__)
+
+# ---------------------------------------------------------------------
+# Status / job-state constants
+# ---------------------------------------------------------------------
+
+STATUS_NEW = "new"
+STATUS_RUNNING = "running"
+STATUS_SUSPENDED = "suspended"
+STATUS_OK = "ok"
+STATUS_FAIL = "fail"
+STATUS_STRINGS = (
+    "new",
+    "running",
+    "suspended",
+    "ok",
+    "fail",
+)
+
+JOB_STATE_NEW = 0
+JOB_STATE_RUNNING = 1
+JOB_STATE_DONE = 2
+JOB_STATE_ERROR = 3
+JOB_STATE_CANCEL = 4
+JOB_STATES = (
+    JOB_STATE_NEW,
+    JOB_STATE_RUNNING,
+    JOB_STATE_DONE,
+    JOB_STATE_ERROR,
+    JOB_STATE_CANCEL,
+)
+JOB_VALID_STATES = frozenset(JOB_STATES)
+
+TRIAL_KEYS = frozenset(
+    [
+        "tid",
+        "spec",
+        "result",
+        "misc",
+        "state",
+        "owner",
+        "book_time",
+        "refresh_time",
+        "exp_key",
+    ]
+)
+
+TRIAL_MISC_KEYS = frozenset(["tid", "cmd", "idxs", "vals"])
+
+
+# ---------------------------------------------------------------------
+# Serialization helpers
+# ---------------------------------------------------------------------
+
+
+def SONify(arg, memo=None):
+    """Recursively convert numpy scalars/arrays to plain Python values so
+    trial documents are JSON/BSON-serializable."""
+    if memo is None:
+        memo = {}
+    if id(arg) in memo:
+        return memo[id(arg)]
+    if isinstance(arg, datetime.datetime):
+        rval = arg
+    elif isinstance(arg, np.floating):
+        rval = float(arg)
+    elif isinstance(arg, np.integer):
+        rval = int(arg)
+    elif isinstance(arg, np.bool_):
+        rval = bool(arg)
+    elif isinstance(arg, np.ndarray):
+        if arg.ndim == 0:
+            rval = SONify(arg.item())
+        else:
+            rval = [SONify(a, memo) for a in arg]
+    elif isinstance(arg, (list, tuple)):
+        rval = type(arg)(SONify(a, memo) for a in arg)
+    elif isinstance(arg, dict):
+        rval = {SONify(k, memo): SONify(v, memo) for k, v in arg.items()}
+    elif isinstance(arg, (str, float, int, bool, type(None))):
+        rval = arg
+    else:
+        raise TypeError("SONify", arg)
+    memo[id(arg)] = rval
+    return rval
+
+
+def miscs_update_idxs_vals(miscs, idxs, vals, assert_all_vals_used=True, idxs_map=None):
+    """Unpack aggregated (idxs, vals) into the per-trial misc documents."""
+    if idxs_map is None:
+        idxs_map = {}
+    assert set(idxs.keys()) == set(vals.keys())
+    misc_by_id = {m["tid"]: m for m in miscs}
+    for m in miscs:
+        m["idxs"] = {key: [] for key in idxs}
+        m["vals"] = {key: [] for key in idxs}
+    for key in idxs:
+        assert len(idxs[key]) == len(vals[key])
+        for tid, val in zip(idxs[key], vals[key]):
+            tid = idxs_map.get(tid, tid)
+            if assert_all_vals_used or tid in misc_by_id:
+                misc_by_id[tid]["idxs"][key] = [tid]
+                misc_by_id[tid]["vals"][key] = [val]
+    return miscs
+
+
+def miscs_to_idxs_vals(miscs, keys=None):
+    """Aggregate per-trial misc docs into {label: [tids]} / {label: [vals]}."""
+    if keys is None:
+        if len(miscs) == 0:
+            raise ValueError("cannot infer keys from empty miscs")
+        keys = list(miscs[0]["idxs"].keys())
+    idxs = {k: [] for k in keys}
+    vals = {k: [] for k in keys}
+    for misc in miscs:
+        for node_id in keys:
+            t_idxs = misc["idxs"].get(node_id, [])
+            t_vals = misc["vals"].get(node_id, [])
+            assert len(t_idxs) == len(t_vals)
+            assert t_idxs == [] or t_idxs == [misc["tid"]]
+            idxs[node_id].extend(t_idxs)
+            vals[node_id].extend(t_vals)
+    return idxs, vals
+
+
+def spec_from_misc(misc):
+    """The {label: value} assignment of one trial (active labels only)."""
+    spec = {}
+    for k, v in misc["vals"].items():
+        if len(v) == 0:
+            pass
+        elif len(v) == 1:
+            spec[k] = v[0]
+        else:
+            raise NotImplementedError("multiple values for one label", (k, v))
+    return spec
+
+
+def validate_timeout(timeout):
+    if timeout is not None and (
+        not isinstance(timeout, numbers.Number)
+        or timeout <= 0
+        or isinstance(timeout, bool)
+    ):
+        raise Exception(
+            f"The timeout argument should be None or a positive value. Given value: {timeout}"
+        )
+
+
+def validate_loss_threshold(loss_threshold):
+    if loss_threshold is not None and (
+        not isinstance(loss_threshold, numbers.Number)
+        or isinstance(loss_threshold, bool)
+    ):
+        raise Exception(
+            "The loss_threshold argument should be None or a numeric value. "
+            f"Given value: {loss_threshold}"
+        )
+
+
+# ---------------------------------------------------------------------
+# Trials
+# ---------------------------------------------------------------------
+
+
+class _TrialsHistory:
+    """Struct-of-arrays cache of completed-trial history.
+
+    Per label: contiguous ``tids``/``vals`` numpy arrays (active trials
+    only); plus the aligned ok-trial ``loss_tids``/``losses`` arrays.  This
+    is what the TPE/anneal jitted kernels consume — rebuilt only when the
+    set of completed trials changes, never per suggest.
+    """
+
+    def __init__(self):
+        self._fingerprint = None
+        self._seen_revision = None
+        self._idxs_lists = {}
+        self._vals_lists = {}
+        self._loss_join_view = None
+        self.idxs = {}
+        self.vals = {}
+        self.loss_tids = np.zeros(0, dtype=np.int64)
+        self.losses = np.zeros(0, dtype=np.float64)
+        # Monotonic content version: bumped each time the arrays are
+        # actually replaced.  ``last_nonappend_version`` marks the last
+        # bump that was NOT append-only growth — downstream device
+        # mirrors (tpe_device.DeviceHistory) use the pair to take their
+        # append fast path without re-comparing the full synced prefix
+        # (O(N) per suggest otherwise).
+        self.content_version = 0
+        self.last_nonappend_version = 0
+
+    def __setstate__(self, state):
+        # defaults first, then the pickled attrs: caches pickled by older
+        # versions (inside trials_save_file checkpoints) lack newer
+        # attributes like _seen_revision/_loss_join_view
+        self.__init__()
+        self.__dict__.update(state)
+
+    def join_losses(self, tids):
+        """Vectorized tid→loss join against the aligned (loss_tids,
+        losses) arrays: returns ``(ok_mask, losses_of_ok)`` where
+        ``ok_mask`` marks tids present with a non-NaN loss.  The sorted
+        view is memoized per rebuild (shared by anneal's incumbent build
+        and ATPE's correlation featurizer — both per-suggest)."""
+        tids = np.asarray(tids, dtype=np.int64)
+        if self._loss_join_view is None:
+            order = np.argsort(self.loss_tids, kind="stable")
+            self._loss_join_view = (self.loss_tids[order], self.losses[order])
+        lt_sorted, ls_sorted = self._loss_join_view
+        if not len(lt_sorted) or not len(tids):
+            return np.zeros(len(tids), dtype=bool), np.zeros(0)
+        pos = np.clip(np.searchsorted(lt_sorted, tids), 0, len(lt_sorted) - 1)
+        ok = (lt_sorted[pos] == tids) & ~np.isnan(ls_sorted[pos])
+        return ok, ls_sorted[pos[ok]]
+
+    def maybe_rebuild(self, trials_obj):
+        # Revision fast path: ``Trials`` bumps ``_revision`` in
+        # ``refresh()`` — the sole point where ``_trials`` (what this
+        # cache reads) changes — so an unchanged revision means the
+        # store content is unchanged and
+        # the O(N) fingerprint walk below is skipped entirely — this is
+        # what keeps per-suggest host work O(1) at 10k-trial histories
+        # (~27 ms/suggest of doc-walking otherwise, several times the
+        # device scorer itself).  In-place doc mutation WITHOUT a
+        # refresh() is invisible to this cache; refresh-before-read is
+        # the store's documented contract (the driver loop, workers, and
+        # serial_evaluate all end mutations with a refresh).
+        rev = getattr(trials_obj, "_revision", None)
+        if rev is not None and rev == self._seen_revision:
+            return
+        # One pass over the docs collects the completed-OK (tid, loss)
+        # pairs; they double as the change fingerprint.  In the steady
+        # state (history grew by k trials) the per-label SoA columns are
+        # extended by the k new docs only — the reference re-walks every
+        # document per suggest (``miscs_to_idxs_vals``); rebuilding from
+        # scratch here would quietly reintroduce that O(N) cost per trial.
+        # (_seen_revision is committed only on SUCCESS — at each return
+        # below — so an exception mid-walk, e.g. a malformed loss, leaves
+        # the cache marked stale and re-raises on the next access instead
+        # of silently serving pre-mutation arrays.)
+        kept, tids, losses = [], [], []
+        for t in trials_obj._trials:
+            if t["state"] != JOB_STATE_DONE or t["result"].get("status") != STATUS_OK:
+                continue
+            loss = t["result"].get("loss")
+            if loss is None:
+                continue
+            kept.append(t)
+            tids.append(t["tid"])
+            losses.append(float(loss))
+        fp_tids = np.asarray(tids, dtype=np.int64)
+        fp_losses = np.asarray(losses, dtype=np.float64)
+        fingerprint = (len(kept), fp_tids.tobytes(), fp_losses.tobytes())
+        if fingerprint == self._fingerprint:
+            self._seen_revision = rev
+            return
+
+        n_prev = len(self.loss_tids)
+        append_only = (
+            len(kept) >= n_prev
+            and np.array_equal(fp_tids[:n_prev], self.loss_tids)
+            # equal_nan: NaN losses (diverged trials) are stable content,
+            # not changes — without it every append degrades to a full
+            # O(N) rebuild once any NaN enters the history
+            and np.array_equal(fp_losses[:n_prev], self.losses, equal_nan=True)
+        )
+        # Extend into COPIES and commit every attribute only after the
+        # walk finishes: an exception on a malformed doc (missing vals,
+        # bad loss) must leave the previous cache fully intact — a
+        # half-extended list plus a committed fingerprint would be served
+        # as fresh forever after.  The copies are pointer-shallow, ~50 µs
+        # at 10k trials, and only on actual content changes.
+        if append_only:
+            idxs_lists = {k: list(v) for k, v in self._idxs_lists.items()}
+            vals_lists = {k: list(v) for k, v in self._vals_lists.items()}
+        else:
+            idxs_lists, vals_lists = {}, {}
+            n_prev = 0
+        for t in kept[n_prev:]:
+            for k, tt in t["misc"]["idxs"].items():
+                if tt:
+                    idxs_lists.setdefault(k, []).append(tt[0])
+                    vals_lists.setdefault(k, []).append(t["misc"]["vals"][k][0])
+        # materialize BEFORE committing anything: np.asarray on a
+        # malformed column (e.g. a non-int tid) must not strand a
+        # committed fingerprint over misaligned arrays
+        idxs_arrays = {k: np.asarray(v, dtype=np.int64) for k, v in idxs_lists.items()}
+        vals_arrays = {k: np.asarray(v) for k, v in vals_lists.items()}
+        self._idxs_lists = idxs_lists
+        self._vals_lists = vals_lists
+        self._loss_join_view = None  # re-memoized on next join_losses
+        self._fingerprint = fingerprint
+        self.loss_tids = fp_tids
+        self.losses = fp_losses
+        self.idxs = idxs_arrays
+        self.vals = vals_arrays
+        self.content_version += 1
+        if not append_only:
+            self.last_nonappend_version = self.content_version
+        self._seen_revision = rev
+
+
+class Trials:
+    """In-memory store of trial documents (the serial backend).
+
+    Document format is the reference's: ``tid``, ``spec``, ``result``,
+    ``misc`` (with sparse per-label ``idxs``/``vals``), ``state``, ``owner``,
+    ``book_time``, ``refresh_time``, ``exp_key``.
+
+    **Mutation contract (refresh-before-read):** every mutation of trial
+    documents must be followed by :meth:`refresh` before ``history`` /
+    ``best_trial`` / the suggest algorithms read the store.  ``refresh``
+    is the sole revision-bump point; the SoA history cache and the
+    device-resident mirrors key their O(1) fast paths off that revision,
+    so in-place doc edits without a refresh are invisible to them.
+    Subclasses overriding ``refresh`` must call ``super().refresh()``
+    (or otherwise reach the bump) — pinned by
+    ``tests/test_device_history.py::TestRevisionContract``.
+    """
+
+    asynchronous = False
+
+    def __init__(self, exp_key=None, refresh=True):
+        self._ids = set()
+        self._dynamic_trials = []
+        self._exp_key = exp_key
+        self.attachments = {}
+        self._history = _TrialsHistory()
+        self._revision = 0
+        if refresh:
+            self.refresh()
+
+    # -- container protocol -------------------------------------------
+    def view(self, exp_key=None, refresh=True):
+        rval = object.__new__(self.__class__)
+        rval._exp_key = exp_key
+        rval._ids = self._ids
+        rval._dynamic_trials = self._dynamic_trials
+        rval.attachments = self.attachments
+        rval._history = _TrialsHistory()
+        rval._revision = 0
+        if refresh:
+            rval.refresh()
+        return rval
+
+    def aname(self, trial, name):
+        return f"ATTACH::{trial['tid']}::{name}"
+
+    def trial_attachments(self, trial):
+        """Dict-like accessor to a single trial's attachments."""
+
+        class Attachments:
+            def __contains__(_self, name):
+                return self.aname(trial, name) in self.attachments
+
+            def __getitem__(_self, name):
+                return self.attachments[self.aname(trial, name)]
+
+            def __setitem__(_self, name, value):
+                self.attachments[self.aname(trial, name)] = value
+
+            def __delitem__(_self, name):
+                del self.attachments[self.aname(trial, name)]
+
+        return Attachments()
+
+    def __iter__(self):
+        return iter(self._trials)
+
+    def __len__(self):
+        return len(self._trials)
+
+    def __getitem__(self, item):
+        return self._trials[item]
+
+    # -- views over documents -----------------------------------------
+    @property
+    def trials(self):
+        return self._trials
+
+    @property
+    def tids(self):
+        return [tt["tid"] for tt in self._trials]
+
+    @property
+    def specs(self):
+        return [tt["spec"] for tt in self._trials]
+
+    @property
+    def results(self):
+        return [tt["result"] for tt in self._trials]
+
+    @property
+    def miscs(self):
+        return [tt["misc"] for tt in self._trials]
+
+    @property
+    def idxs_vals(self):
+        return miscs_to_idxs_vals(self.miscs)
+
+    @property
+    def idxs(self):
+        return self.idxs_vals[0]
+
+    @property
+    def vals(self):
+        return self.idxs_vals[1]
+
+    # -- store maintenance --------------------------------------------
+    def refresh(self):
+        # refresh() is the SOLE revision-bump point: every documented
+        # mutation path ends here, and _trials (what the cache reads) only
+        # changes here.  The bump lets _TrialsHistory skip its O(N) change
+        # scan between refreshes.  (getattr: Trials unpickled from
+        # pre-revision checkpoints lack the attribute — trials_save_file
+        # resume must keep working)
+        self._revision = getattr(self, "_revision", 0) + 1
+        if self._exp_key is None:
+            self._trials = [
+                tt for tt in self._dynamic_trials if tt["state"] != JOB_STATE_ERROR
+            ]
+        else:
+            self._trials = [
+                tt
+                for tt in self._dynamic_trials
+                if tt["state"] != JOB_STATE_ERROR and tt["exp_key"] == self._exp_key
+            ]
+        self._ids.update([tt["tid"] for tt in self._trials])
+        self._history.maybe_rebuild(self)
+
+    @property
+    def history(self):
+        """The SoA history cache consumed by the jitted algorithms."""
+        self._history.maybe_rebuild(self)
+        return self._history
+
+    def assert_valid_trial(self, trial):
+        if not (hasattr(trial, "keys") and hasattr(trial, "values")):
+            raise InvalidTrial("trial should be dict-like", trial)
+        for key in TRIAL_KEYS:
+            if key not in trial:
+                raise InvalidTrial(f"trial missing key {key}", trial)
+        for key in TRIAL_MISC_KEYS:
+            if key not in trial["misc"]:
+                raise InvalidTrial(f'trial["misc"] missing key {key}', trial)
+        if trial["tid"] != trial["misc"]["tid"]:
+            raise InvalidTrial("tid mismatch between root and misc", trial)
+        if self._exp_key is not None and trial["exp_key"] != self._exp_key:
+            raise InvalidTrial(f"wrong exp_key {trial['exp_key']}", trial)
+        if trial["state"] not in JOB_VALID_STATES:
+            raise InvalidTrial(f"invalid state {trial['state']}", trial)
+        return trial
+
+    def _insert_trial_docs(self, docs):
+        rval = [doc["tid"] for doc in docs]
+        self._dynamic_trials.extend(docs)
+        return rval
+
+    def insert_trial_doc(self, doc):
+        doc = SONify(self.assert_valid_trial(doc))
+        return self._insert_trial_docs([doc])[0]
+
+    def insert_trial_docs(self, docs):
+        docs = [SONify(self.assert_valid_trial(doc)) for doc in docs]
+        return self._insert_trial_docs(docs)
+
+    def new_trial_ids(self, n):
+        aa = len(self._ids)
+        if aa:
+            aa = max(self._ids) + 1
+        rval = list(range(aa, aa + n))
+        self._ids.update(rval)
+        return rval
+
+    def new_trial_docs(self, tids, specs, results, miscs):
+        rval = []
+        for tid, spec, result, misc in zip(tids, specs, results, miscs):
+            doc = {
+                "state": JOB_STATE_NEW,
+                "tid": tid,
+                "spec": spec,
+                "result": result,
+                "misc": misc,
+                "exp_key": self._exp_key,
+                "owner": None,
+                "version": 0,
+                "book_time": None,
+                "refresh_time": None,
+            }
+            rval.append(doc)
+        return rval
+
+    def source_trial_docs(self, tids, specs, results, miscs, sources):
+        rval = []
+        for tid, spec, result, misc, source in zip(tids, specs, results, miscs, sources):
+            doc = {
+                "version": 0,
+                "tid": tid,
+                "spec": spec,
+                "result": result,
+                "misc": misc,
+                "book_time": coarse_utcnow(),
+                "refresh_time": None,
+                "exp_key": source["exp_key"],
+                "owner": source["owner"],
+                "state": source["state"],
+            }
+            rval.append(doc)
+        return rval
+
+    def delete_all(self):
+        self._dynamic_trials = []
+        self.attachments = {}
+        self._history = _TrialsHistory()
+        self.refresh()
+
+    def count_by_state_synced(self, arg, trials=None):
+        """Count trials in state ``arg`` (int or sequence) among ``trials``."""
+        if trials is None:
+            trials = self._trials
+        if arg in JOB_STATES:
+            queue = [doc for doc in trials if doc["state"] == arg]
+        elif hasattr(arg, "__iter__"):
+            states = set(arg)
+            assert states.issubset(JOB_VALID_STATES)
+            queue = [doc for doc in trials if doc["state"] in states]
+        else:
+            raise TypeError(arg)
+        return len(queue)
+
+    def count_by_state_unsynced(self, arg):
+        if self._exp_key is not None:
+            exp_trials = [
+                tt for tt in self._dynamic_trials if tt["exp_key"] == self._exp_key
+            ]
+        else:
+            exp_trials = self._dynamic_trials
+        return self.count_by_state_synced(arg, trials=exp_trials)
+
+    # -- results ------------------------------------------------------
+    def losses(self, bandit=None):
+        if bandit is None:
+            return [r.get("loss") for r in self.results]
+        return [bandit.loss(r, s) for r, s in zip(self.results, self.specs)]
+
+    def statuses(self, bandit=None):
+        if bandit is None:
+            return [r.get("status") for r in self.results]
+        return [bandit.status(r, s) for r, s in zip(self.results, self.specs)]
+
+    def to_dataframe(self):
+        """Trial history as a pandas DataFrame: one row per trial with
+        tid/state/status/loss/book+refresh times plus one ``vals.<label>``
+        column per hyperparameter (NaN where the label's branch was
+        inactive). Beyond the reference (which leaves users to flatten
+        ``trials.trials`` by hand); import is deferred so pandas stays an
+        optional dependency."""
+        import pandas as pd
+
+        rows = []
+        for t in self.trials:
+            row = {
+                "tid": t["tid"],
+                "state": t["state"],
+                "status": t["result"].get("status"),
+                "loss": t["result"].get("loss"),
+                "book_time": t.get("book_time"),
+                "refresh_time": t.get("refresh_time"),
+            }
+            for label, vals in t["misc"]["vals"].items():
+                row[f"vals.{label}"] = vals[0] if vals else np.nan
+            rows.append(row)
+        return pd.DataFrame(rows)
+
+    @property
+    def best_trial(self):
+        """The completed trial with the lowest loss (AllTrialsFailed if none).
+
+        Rides the SoA history cache (DONE + ok + loss-not-None, aligned
+        tid/loss arrays) instead of re-walking every document — this is
+        called per suggest by ATPE's featurizer."""
+        self._history.maybe_rebuild(self)
+        ls = self._history.losses
+        usable = np.flatnonzero(~np.isnan(ls))  # -inf is a valid winner
+        if not len(usable):
+            raise AllTrialsFailed
+        # argmin over the usable subset, mapped back — an inf sentinel
+        # would tie with real +inf losses and could land on a NaN trial
+        best_tid = int(
+            self._history.loss_tids[usable[int(np.argmin(ls[usable]))]]
+        )
+        for t in self._trials:
+            # tid match alone could pick a shadowing non-completed doc if
+            # tids are ever duplicated — re-check the candidate filter
+            if (
+                t["tid"] == best_tid
+                and t["state"] == JOB_STATE_DONE
+                and t["result"].get("status") == STATUS_OK
+                and t["result"].get("loss") is not None
+            ):
+                return t
+        raise AllTrialsFailed  # cache/tid drift — should be unreachable
+
+    @property
+    def argmin(self):
+        return spec_from_misc(self.best_trial["misc"])
+
+    def average_best_error(self, bandit=None):
+        """Mean true_loss among the statistically-best trials."""
+        if bandit is None:
+            results = self.results
+            loss = [r["loss"] for r in results if r["status"] == STATUS_OK]
+            loss_v = [
+                r.get("loss_variance", 0) for r in results if r["status"] == STATUS_OK
+            ]
+            true_loss = [
+                r.get("true_loss", r["loss"])
+                for r in results
+                if r["status"] == STATUS_OK
+            ]
+        else:
+            def fmap(f):
+                rval = np.asarray(
+                    [
+                        f(r, s)
+                        for (r, s) in zip(self.results, self.specs)
+                        if bandit.status(r) == STATUS_OK
+                    ]
+                ).astype("float")
+                if not np.all(np.isfinite(rval)):
+                    raise ValueError()
+                return rval
+
+            loss = fmap(bandit.loss)
+            loss_v = fmap(bandit.loss_variance)
+            true_loss = fmap(bandit.true_loss)
+        loss3 = sorted(zip(loss, loss_v, true_loss))
+        if not loss3:
+            raise ValueError("empty loss vector")
+        loss3 = np.asarray(loss3, dtype=float)
+        if np.all(loss3[:, 1] == 0):
+            best_idx = int(np.argmin(loss3[:, 0]))
+            return loss3[best_idx, 2]
+        cutoff = 0
+        sigma = np.sqrt(loss3[0][1])
+        while cutoff < len(loss3) and loss3[cutoff][0] < loss3[0][0] + sigma:
+            cutoff += 1
+        pmin = pmin_sampled(loss3[:cutoff, 0], loss3[:cutoff, 1])
+        avg_true_loss = (pmin * loss3[:cutoff, 2]).sum()
+        return avg_true_loss
+
+    # -- driver entry -------------------------------------------------
+    def fmin(
+        self,
+        fn,
+        space,
+        algo=None,
+        max_evals=None,
+        timeout=None,
+        loss_threshold=None,
+        max_queue_len=1,
+        rstate=None,
+        verbose=False,
+        pass_expr_memo_ctrl=None,
+        catch_eval_exceptions=False,
+        return_argmin=True,
+        show_progressbar=True,
+        early_stop_fn=None,
+        trials_save_file="",
+        points_to_evaluate=None,
+        max_speculation=None,
+        retry_policy=None,
+        fault_stats=None,
+        search_stats=None,
+    ):
+        """Minimize ``fn`` over ``space`` using this store (see ``fmin``)."""
+        from .fmin import fmin as _fmin  # local import: avoid circularity
+
+        return _fmin(
+            fn,
+            space,
+            algo=algo,
+            max_evals=max_evals,
+            timeout=timeout,
+            loss_threshold=loss_threshold,
+            trials=self,
+            rstate=rstate,
+            verbose=verbose,
+            max_queue_len=max_queue_len,
+            allow_trials_fmin=False,
+            points_to_evaluate=points_to_evaluate,
+            pass_expr_memo_ctrl=pass_expr_memo_ctrl,
+            catch_eval_exceptions=catch_eval_exceptions,
+            return_argmin=return_argmin,
+            show_progressbar=show_progressbar,
+            early_stop_fn=early_stop_fn,
+            trials_save_file=trials_save_file,
+            max_speculation=max_speculation,
+            retry_policy=retry_policy,
+            fault_stats=fault_stats,
+            search_stats=search_stats,
+        )
+
+
+def trials_from_docs(docs, validate=True, **kwargs):
+    """Construct a Trials base class instance from a list of trials documents."""
+    rval = Trials(**kwargs)
+    if validate:
+        rval.insert_trial_docs(docs)
+    else:
+        rval._insert_trial_docs(docs)
+    rval.refresh()
+    return rval
+
+
+# ---------------------------------------------------------------------
+# Ctrl
+# ---------------------------------------------------------------------
+
+
+class Ctrl:
+    """Control object passed to objectives that want runtime access."""
+
+    info = logger.info
+    warn = logger.warning
+    error = logger.error
+    debug = logger.debug
+
+    def __init__(self, trials, current_trial=None):
+        self.trials = trials
+        self.current_trial = current_trial
+
+    @property
+    def attachments(self):
+        """Attachments of the current trial."""
+        return self.trials.trial_attachments(trial=self.current_trial)
+
+    def checkpoint(self, result=None):
+        """Persist a partial result mid-trial (durable backends override)."""
+        assert self.current_trial in self.trials._dynamic_trials
+        if result is not None:
+            self.current_trial["result"] = result
+
+    def inject_results(self, specs, results, miscs, new_tids=None):
+        """Inject pre-computed trials as if they had been executed."""
+        trial_count = len(specs)
+        assert len(specs) == len(results) == len(miscs)
+        if new_tids is None:
+            new_tids = self.trials.new_trial_ids(trial_count)
+        assert len(new_tids) == trial_count
+        current = self.current_trial
+        new_trials = self.trials.source_trial_docs(
+            tids=new_tids,
+            specs=specs,
+            results=results,
+            miscs=miscs,
+            sources=[
+                {
+                    "exp_key": current["exp_key"],
+                    "owner": current["owner"],
+                    "state": JOB_STATE_DONE,
+                }
+            ]
+            * trial_count,
+        )
+        return self.trials.insert_trial_docs(new_trials)
+
+
+# ---------------------------------------------------------------------
+# Domain
+# ---------------------------------------------------------------------
+
+
+class Domain:
+    """Binds an objective ``fn`` to a compiled search space."""
+
+    rec_eval_print_node_on_error = False
+
+    def __init__(
+        self,
+        fn,
+        expr,
+        workdir=None,
+        pass_expr_memo_ctrl=None,
+        name=None,
+        loss_target=None,
+    ):
+        self.fn = fn
+        if pass_expr_memo_ctrl is None:
+            self.pass_expr_memo_ctrl = getattr(fn, "fmin_pass_expr_memo_ctrl", False)
+        else:
+            self.pass_expr_memo_ctrl = pass_expr_memo_ctrl
+        self.expr = as_apply(expr)
+        self.space = CompiledSpace(self.expr)  # one-time space lowering
+        self.params = {lb: sp.node for lb, sp in self.space.specs.items()}
+        self.loss_target = loss_target
+        self.name = name
+        self.workdir = workdir
+        self.s_new_ids = None  # reference-compat attribute
+        self.cmd = ("domain_attachment", "FMinIter_Domain")
+
+    # -- config <-> memo ----------------------------------------------
+    def memo_from_config(self, config):
+        memo = {}
+        for label, node in self.params.items():
+            if label in config:
+                memo[node] = config[label]
+            else:
+                memo[node] = GarbageCollected
+        return memo
+
+    def evaluate(self, config, ctrl, attach_attachments=True):
+        memo = self.memo_from_config(config)
+        use_obj_for_literal_in_memo(self.expr, ctrl, Ctrl, memo)
+        if self.pass_expr_memo_ctrl:
+            rval = self.fn(expr=self.expr, memo=memo, ctrl=ctrl)
+        else:
+            pyll_rval = rec_eval(
+                self.expr,
+                memo=memo,
+                print_node_on_error=self.rec_eval_print_node_on_error,
+            )
+            rval = self.fn(pyll_rval)
+
+        if isinstance(rval, (float, int, np.number)):
+            dict_rval = {"loss": float(rval), "status": STATUS_OK}
+        else:
+            dict_rval = dict(rval)
+            status = dict_rval["status"]
+            if status not in STATUS_STRINGS:
+                raise InvalidResultStatus(dict_rval)
+            if status == STATUS_OK:
+                try:
+                    dict_rval["loss"] = float(dict_rval["loss"])
+                except (TypeError, KeyError):
+                    raise InvalidLoss(dict_rval)
+
+        if attach_attachments:
+            attachments = dict_rval.pop("attachments", {})
+            for key, val in attachments.items():
+                ctrl.attachments[key] = val
+        return dict_rval
+
+    def evaluate_async(self, config, ctrl, attach_attachments=True):
+        """Synchronous part of an async evaluation: returns (run, done)."""
+        memo = self.memo_from_config(config)
+        use_obj_for_literal_in_memo(self.expr, ctrl, Ctrl, memo)
+        pyll_rval = rec_eval(
+            self.expr,
+            memo=memo,
+            print_node_on_error=self.rec_eval_print_node_on_error,
+        )
+        return pyll_rval
+
+    def short_str(self):
+        return f"Domain{{{self.name or self.fn!r}}}"
+
+    # -- result accessors ---------------------------------------------
+    def loss(self, result, config=None):
+        return result.get("loss")
+
+    def loss_variance(self, result, config=None):
+        return result.get("loss_variance", 0.0)
+
+    def true_loss(self, result, config=None):
+        try:
+            return result["true_loss"]
+        except KeyError:
+            return self.loss(result, config=config)
+
+    def true_loss_variance(self, config=None):
+        raise NotImplementedError()
+
+    def status(self, result, config=None):
+        return result["status"]
+
+    def new_result(self):
+        return {"status": STATUS_NEW}

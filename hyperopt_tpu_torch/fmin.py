@@ -1,0 +1,512 @@
+"""The fmin driver loop.
+
+Reference parity (SURVEY.md §2 #7): ``hyperopt/fmin.py`` —
+``fmin_pass_expr_memo_ctrl`` (~L30-60), ``generate_trial``/
+``generate_trials_to_calculate`` (~L60-130), ``FMinIter`` (~L130-500),
+``fmin`` full signature (~L500-700), ``space_eval`` (~L700-730).
+
+The driver is host-side orchestration by design: suggest runs on the
+device, the objective is arbitrary user Python, and this loop shuttles
+sparse trial docs between them.  The loop is strictly serial (suggest,
+then evaluate).  Keywords of ``hyperopt_tpu.fmin`` whose subsystems this
+package does not carry yet raise ``NotImplementedError`` naming the
+ROADMAP item instead of being ignored.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import logging
+import os
+import pickle
+import sys
+import time
+from timeit import default_timer as timer
+
+import numpy as np
+
+from . import progress
+from .base import (
+    JOB_STATE_DONE,
+    JOB_STATE_ERROR,
+    JOB_STATE_NEW,
+    JOB_STATE_RUNNING,
+    STATUS_OK,
+    Ctrl,
+    Domain,
+    Trials,
+    spec_from_misc,
+    trials_from_docs,
+    validate_loss_threshold,
+    validate_timeout,
+)
+from .utils import coarse_utcnow
+
+logger = logging.getLogger(__name__)
+
+
+def _not_ported(keyword, item):
+    raise NotImplementedError(
+        f"fmin({keyword}) is not ported to hyperopt_tpu_torch yet "
+        f"(ROADMAP.md: {item}); use hyperopt_tpu for it"
+    )
+
+
+def _check_unported(max_speculation, validate_space, retry_policy, fault_stats,
+                    search_stats, trials_save_file):
+    if max_speculation:
+        _not_ported("max_speculation>0", "queue A item 6, pipeline.py")
+    if validate_space:
+        _not_ported("validate_space=True", "queue A item 10, analysis/ space lint")
+    if retry_policy is not None:
+        _not_ported("retry_policy", "queue A item 8, resilience/retry.py")
+    if fault_stats is not None:
+        _not_ported("fault_stats", "queue A item 8, DeviceRecovery and FaultStats")
+    if search_stats is not None:
+        _not_ported("search_stats", "queue A item 8, diagnostics.SearchStats")
+    if str(trials_save_file).endswith(".orbax"):
+        _not_ported("trials_save_file='*.orbax'", "queue A item 6, checkpoint.py")
+
+
+def _atomic_pickle_dump(obj, path, protocol):
+    """Write-then-rename with fsync: a crash mid-save never tears the
+    checkpoint the next run resumes from."""
+    tmp = f"{path}.tmp.{os.getpid()}"
+    with open(tmp, "wb") as f:
+        pickle.dump(obj, f, protocol=protocol)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+
+
+def fmin_pass_expr_memo_ctrl(f):
+    """Decorator: mark ``f`` as wanting (expr, memo, ctrl) instead of a
+    sampled point (reference: ``hyperopt/fmin.py — fmin_pass_expr_memo_ctrl``)."""
+    f.fmin_pass_expr_memo_ctrl = True
+    return f
+
+
+def generate_trial(tid, space):
+    """Build one warm-start trial document from a {label: value} point."""
+    variables = space.keys()
+    idxs = {v: [tid] for v in variables}
+    vals = {v: [space[v]] for v in variables}
+    return {
+        "state": JOB_STATE_NEW,
+        "tid": tid,
+        "spec": None,
+        "result": {"status": "new"},
+        "misc": {
+            "tid": tid,
+            "cmd": ("domain_attachment", "FMinIter_Domain"),
+            "idxs": idxs,
+            "vals": vals,
+        },
+        "exp_key": None,
+        "owner": None,
+        "version": 0,
+        "book_time": None,
+        "refresh_time": None,
+    }
+
+
+def generate_trials_to_calculate(points):
+    """Trials pre-loaded with explicit points (``points_to_evaluate``)."""
+    return trials_from_docs(
+        [generate_trial(tid, x) for tid, x in enumerate(points)]
+    )
+
+
+class FMinIter:
+    """The suggest → evaluate → refresh loop, sync or async."""
+
+    catch_eval_exceptions = False
+    pickle_protocol = -1
+    is_cancelled = False
+
+    def __init__(
+        self,
+        algo,
+        domain,
+        trials,
+        rstate,
+        asynchronous=None,
+        max_queue_len=1,
+        poll_interval_secs=None,
+        max_evals=sys.maxsize,
+        timeout=None,
+        loss_threshold=None,
+        verbose=False,
+        show_progressbar=True,
+        early_stop_fn=None,
+        trials_save_file="",
+        max_speculation=None,
+        retry_policy=None,
+        fault_stats=None,
+        search_stats=None,
+    ):
+        _check_unported(max_speculation, False, retry_policy, fault_stats,
+                        search_stats, trials_save_file)
+        self.algo = algo
+        self.domain = domain
+        self.trials = trials
+        if asynchronous is None:
+            self.asynchronous = trials.asynchronous
+        else:
+            self.asynchronous = asynchronous
+        if poll_interval_secs is None:
+            poll_interval_secs = getattr(trials, "poll_interval_secs", 1.0)
+        self.poll_interval_secs = poll_interval_secs
+        self.max_queue_len = max_queue_len
+        self.max_evals = max_evals
+        self.timeout = timeout
+        self.loss_threshold = loss_threshold
+        self.start_time = timer()
+        self.rstate = rstate
+        self.verbose = verbose
+        self.show_progressbar = show_progressbar
+        self.early_stop_fn = early_stop_fn
+        self.early_stop_args = []
+        self.trials_save_file = trials_save_file
+
+        if self.asynchronous and "FMinIter_Domain" not in trials.attachments:
+            # out-of-process workers unpickle the domain from this attachment
+            try:
+                trials.attachments["FMinIter_Domain"] = pickle.dumps(domain)
+            except (pickle.PicklingError, AttributeError, TypeError) as e:
+                logger.info(
+                    "domain not picklable (%s); out-of-process workers "
+                    "will not be able to fetch it",
+                    e,
+                )
+
+    def serial_evaluate(self, N=-1):
+        for trial in self.trials._dynamic_trials:
+            if trial["state"] == JOB_STATE_NEW:
+                trial["state"] = JOB_STATE_RUNNING
+                now = coarse_utcnow()
+                trial["book_time"] = now
+                trial["refresh_time"] = now
+                spec = spec_from_misc(trial["misc"])
+                ctrl = Ctrl(self.trials, current_trial=trial)
+                try:
+                    result = self.domain.evaluate(spec, ctrl)
+                except Exception as e:
+                    logger.error("job exception: %s", str(e))
+                    trial["state"] = JOB_STATE_ERROR
+                    trial["misc"]["error"] = (str(type(e)), str(e))
+                    trial["refresh_time"] = coarse_utcnow()
+                    if not self.catch_eval_exceptions:
+                        raise
+                else:
+                    trial["state"] = JOB_STATE_DONE
+                    trial["result"] = result
+                    trial["refresh_time"] = coarse_utcnow()
+                N -= 1
+                if N == 0:
+                    break
+        self.trials.refresh()
+
+    def block_until_done(self):
+        already_printed = False
+        if self.asynchronous:
+            unfinished_states = [JOB_STATE_NEW, JOB_STATE_RUNNING]
+
+            def get_queue_len():
+                return self.trials.count_by_state_unsynced(unfinished_states)
+
+            qlen = get_queue_len()
+            while qlen > 0:
+                if not already_printed and self.verbose:
+                    logger.info("Waiting for %d jobs to finish ...", qlen)
+                    already_printed = True
+                time.sleep(self.poll_interval_secs)
+                qlen = get_queue_len()
+            self.trials.refresh()
+        else:
+            self.serial_evaluate()
+
+    def run(self, N, block_until_done=True):
+        """Enqueue and run up to ``N`` new trials."""
+        trials = self.trials
+        algo = self.algo
+        n_queued = 0
+
+        def get_queue_len():
+            return self.trials.count_by_state_unsynced(JOB_STATE_NEW)
+
+        def get_n_done():
+            return self.trials.count_by_state_unsynced(JOB_STATE_DONE)
+
+        def get_n_unfinished():
+            unfinished_states = [JOB_STATE_NEW, JOB_STATE_RUNNING]
+            return self.trials.count_by_state_unsynced(unfinished_states)
+
+        stopped = False
+        initial_n_done = get_n_done()
+        progress_callback = (
+            progress.default_callback
+            if self.show_progressbar
+            else progress.no_progress_callback
+        )
+        with contextlib.ExitStack() as _stack:
+            progress_ctx = _stack.enter_context(
+                progress_callback(initial=0, total=N)
+            )
+            all_trials_complete = False
+            best_loss = float("inf")
+            n_displayed = 0
+            while (
+                # more trials to enqueue, or
+                n_queued < N
+                # block until all queued trials finish
+                or (block_until_done and not all_trials_complete)
+            ):
+                qlen = get_queue_len()
+                while (
+                    qlen < self.max_queue_len and n_queued < N and not self.is_cancelled
+                ):
+                    n_to_enqueue = min(self.max_queue_len - qlen, N - n_queued)
+                    new_ids = trials.new_trial_ids(n_to_enqueue)
+                    self.trials.refresh()
+                    seed = self.rstate.integers(2 ** 31 - 1)
+                    new_trials = algo(new_ids, self.domain, trials, seed)
+                    if new_trials is None:
+                        stopped = True
+                        break
+                    assert len(new_ids) >= len(new_trials)
+                    if len(new_trials):
+                        self.trials.insert_trial_docs(new_trials)
+                        self.trials.refresh()
+                        n_queued += len(new_trials)
+                        qlen = get_queue_len()
+                    else:
+                        stopped = True
+                        break
+
+                if self.is_cancelled:
+                    break
+
+                if self.asynchronous:
+                    # wait for workers to fill in the trials
+                    time.sleep(self.poll_interval_secs)
+                else:
+                    # run the trials synchronously in this process
+                    self.serial_evaluate()
+
+                self.trials.refresh()
+                if self.trials_save_file != "":
+                    _atomic_pickle_dump(
+                        self.trials, self.trials_save_file, self.pickle_protocol
+                    )
+                if self.early_stop_fn is not None:
+                    stop, kwargs = self.early_stop_fn(
+                        self.trials, *self.early_stop_args
+                    )
+                    self.early_stop_args = kwargs
+                    if stop:
+                        logger.info(
+                            "Early stop triggered from %s", self.early_stop_fn.__name__
+                        )
+                        stopped = True
+
+                n_unfinished = get_n_unfinished()
+                if n_unfinished == 0:
+                    all_trials_complete = True
+
+                n_done = get_n_done()
+                n_okay = n_done - initial_n_done
+                progress_ctx.update(n_okay - n_displayed)
+                n_displayed = n_okay
+
+                # update progress bar with the best loss so far
+                losses = [
+                    loss
+                    for loss, status in zip(
+                        self.trials.losses(), self.trials.statuses()
+                    )
+                    if status == STATUS_OK and loss is not None
+                ]
+                if losses:
+                    new_best = min(losses)
+                    if new_best < best_loss:
+                        best_loss = new_best
+                        progress_ctx.postfix = f"best loss: {best_loss}"
+                    if (
+                        self.loss_threshold is not None
+                        and best_loss <= self.loss_threshold
+                    ):
+                        stopped = True
+
+                if self.timeout is not None and (
+                    timer() - self.start_time >= self.timeout
+                ):
+                    stopped = True
+
+                if stopped:
+                    break
+
+            if block_until_done:
+                self.block_until_done()
+            self.trials.refresh()
+            logger.debug("Queue empty, exiting run.")
+
+    def exhaust(self):
+        n_done = len(self.trials)
+        self.run(self.max_evals - n_done, block_until_done=self.asynchronous)
+        self.trials.refresh()
+        return self
+
+
+def fmin(
+    fn,
+    space,
+    algo=None,
+    max_evals=None,
+    timeout=None,
+    loss_threshold=None,
+    trials=None,
+    rstate=None,
+    allow_trials_fmin=True,
+    pass_expr_memo_ctrl=None,
+    catch_eval_exceptions=False,
+    verbose=True,
+    return_argmin=True,
+    points_to_evaluate=None,
+    max_queue_len=1,
+    show_progressbar=True,
+    early_stop_fn=None,
+    trials_save_file="",
+    max_speculation=None,
+    validate_space=False,
+    retry_policy=None,
+    fault_stats=None,
+    search_stats=None,
+):
+    """Minimize ``fn`` over ``space`` — the reference's full signature.
+
+    ``algo`` defaults to TPE on the CUDA card; pass
+    ``partial(tpe.suggest, device="cpu")`` to run on the CPU.
+    ``rstate`` (a ``np.random.Generator``) makes the whole run
+    deterministic: per-suggest seeds are drawn from it and seed the
+    device generators.
+
+    The loop is strictly serial: ``max_speculation`` may be None or 0.
+    ``max_speculation>0``, ``validate_space=True``, ``retry_policy``,
+    ``fault_stats``, ``search_stats`` and a ``trials_save_file`` ending
+    in ``.orbax`` raise ``NotImplementedError`` (their subsystems are not
+    ported yet).  A plain ``trials_save_file`` is a pickle checkpoint the
+    next run resumes from.
+    """
+    _check_unported(max_speculation, validate_space, retry_policy, fault_stats,
+                    search_stats, trials_save_file)
+
+    if algo is None:
+        from .algos import tpe
+
+        algo = tpe.suggest
+        logger.warning("fmin: algo not specified, defaulting to TPE")
+
+    validate_timeout(timeout)
+    validate_loss_threshold(loss_threshold)
+
+    if rstate is None:
+        env_rseed = os.environ.get("HYPEROPT_FMIN_SEED", "")
+        if env_rseed:
+            rstate = np.random.default_rng(int(env_rseed))
+        else:
+            rstate = np.random.default_rng()
+    if isinstance(rstate, np.random.RandomState):  # legacy numpy API
+        rstate = np.random.default_rng(rstate.randint(2 ** 31))
+
+    if max_evals is None:
+        max_evals = sys.maxsize
+
+    if trials_save_file != "" and os.path.exists(trials_save_file):
+        with open(trials_save_file, "rb") as f:
+            trials = pickle.load(f)
+
+    if allow_trials_fmin and trials is not None and hasattr(trials, "fmin"):
+        assert not isinstance(trials, list)
+        return trials.fmin(
+            fn,
+            space,
+            algo=algo,
+            max_evals=max_evals,
+            timeout=timeout,
+            loss_threshold=loss_threshold,
+            max_queue_len=max_queue_len,
+            rstate=rstate,
+            pass_expr_memo_ctrl=pass_expr_memo_ctrl,
+            verbose=verbose,
+            catch_eval_exceptions=catch_eval_exceptions,
+            return_argmin=return_argmin,
+            show_progressbar=show_progressbar,
+            early_stop_fn=early_stop_fn,
+            trials_save_file=trials_save_file,
+            points_to_evaluate=points_to_evaluate,
+            max_speculation=max_speculation,
+        )
+
+    if trials is None:
+        if points_to_evaluate is None:
+            trials = Trials()
+        else:
+            assert isinstance(points_to_evaluate, list)
+            trials = generate_trials_to_calculate(points_to_evaluate)
+    elif points_to_evaluate is not None:
+        if len(trials) > 0:
+            raise ValueError(
+                "points_to_evaluate requires an empty trials object"
+            )
+        for doc in (generate_trial(tid, x) for tid, x in enumerate(points_to_evaluate)):
+            trials.insert_trial_doc(doc)
+        trials.refresh()
+
+    domain = Domain(fn, space, pass_expr_memo_ctrl=pass_expr_memo_ctrl)
+
+    rval = FMinIter(
+        algo,
+        domain,
+        trials,
+        max_evals=max_evals,
+        timeout=timeout,
+        loss_threshold=loss_threshold,
+        rstate=rstate,
+        verbose=verbose,
+        max_queue_len=max_queue_len,
+        show_progressbar=show_progressbar,
+        early_stop_fn=early_stop_fn,
+        trials_save_file=trials_save_file,
+    )
+    rval.catch_eval_exceptions = catch_eval_exceptions
+    rval.exhaust()
+
+    if return_argmin:
+        if len(trials.trials) == 0:
+            raise Exception(
+                "There are no evaluation tasks, cannot return argmin of task losses."
+            )
+        return trials.argmin
+    return None
+
+
+def space_eval(space, hp_assignment):
+    """Evaluate a search space at the point ``hp_assignment``.
+
+    Inverse of sampling: plugs per-label values into the graph's
+    hyperopt_param nodes and evaluates only the active branches (lazy
+    switch), yielding the nested structure the objective would have seen.
+    """
+    from .pyll.base import GarbageCollected, as_apply, dfs, rec_eval
+
+    space = as_apply(space)
+    memo = {}
+    for node in dfs(space):
+        if node.name == "hyperopt_param":
+            label = node.pos_args[0].obj
+            if label in hp_assignment:
+                memo[node] = hp_assignment[label]
+            else:
+                memo[node] = GarbageCollected
+    return rec_eval(space, memo=memo)

@@ -1,0 +1,81 @@
+"""Card-only checks of the port's CUDA kernel (marker ``gpu``).
+
+Run on a machine with a CUDA card: ``pytest --noconftest -m gpu tests/test_torch_gpu.py``
+(``--noconftest``: ``tests/conftest.py`` sets JAX up, and the port needs no JAX).
+Without a card every test here skips; whether a card is present is decided
+inside the ``cuda`` fixture, never at import.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from hyperopt_tpu_torch.ops.pair_kernel import pair_score_batched
+from hyperopt_tpu_torch.ops.score import pair_params, pair_score
+
+pytestmark = pytest.mark.gpu
+
+
+def assert_close_to_plain(got, ref, ref64):
+    """Per score: atol 1e-4 + rtol 1e-5 for the summation order of a long
+    logsumexp, plus twice the plain f32 version's own largest error against
+    its f64 evaluation (the quadratic form cancels terms of ~1e5 at narrow
+    sigmas, so two f32 evaluations differ by ~1e-3 there)."""
+    plain_err = float((ref.double() - ref64).abs().max())
+    allow = 1e-4 + 1e-5 * ref.abs() + 2 * plain_err
+    assert bool(((got - ref).abs() <= allow).all()), float((got - ref).abs().max())
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: run `pytest --noconftest -m gpu tests/test_torch_gpu.py` on one")
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version's IEEE f32 matmul
+    return torch.device("cuda")
+
+
+def case(L, C, kb, ka, seed, real_a=None):
+    g = torch.Generator().manual_seed(seed)
+
+    def mixture(k, real):
+        w = torch.rand(L, k, generator=g) + 0.05
+        w[:, real:] = 0.0
+        w = w / w.sum(dim=1, keepdim=True)
+        return w, torch.randn(L, k, generator=g) * 2.0, torch.rand(L, k, generator=g) + 0.01
+
+    params = pair_params(*mixture(kb, kb), *mixture(ka, ka if real_a is None else real_a))
+    z = torch.rand(L, C, generator=g) * 10.0 - 5.0
+    return z, params.contiguous()
+
+
+@pytest.mark.parametrize("shape", [
+    dict(L=2, C=8192, kb=33, ka=16385, real_a=10001),  # the main path at 10k history
+    dict(L=2, C=70, kb=1, ka=40),
+    dict(L=3, C=1000, kb=17, ka=1025, real_a=900),
+])
+def test_kernel_matches_plain_on_card(cuda, shape):
+    z, params = case(seed=0, **shape)
+    z, params = z.to(cuda), params.to(cuda)
+    before = pair_score_batched.launches
+    got = pair_score_batched(z, params, shape["kb"])
+    torch.cuda.synchronize()
+    assert pair_score_batched.launches == before + 1
+    ref = pair_score(z, params, shape["kb"])
+    ref64 = pair_score(z.double(), params.double(), shape["kb"])
+    assert torch.isfinite(got).all()
+    assert_close_to_plain(got, ref, ref64)
+    # and against the CPU's plain version of the same inputs
+    cpu = pair_score(z.cpu(), params.cpu(), shape["kb"])
+    assert_close_to_plain(got.cpu(), cpu, ref64.cpu())
+
+
+def test_suggest_runs_on_card(cuda):
+    import hyperopt_tpu_torch as T
+
+    space = {"x": T.hp.uniform("x", -5, 5), "c": T.hp.choice("c", [0, 1, 2])}
+    trials = T.Trials()
+    T.fmin(lambda p: (p["x"] - 1.0) ** 2 + p["c"], space,
+           algo=T.partial(T.tpe.suggest, n_startup_jobs=5), max_evals=15,
+           trials=trials, rstate=np.random.default_rng(0), show_progressbar=False)
+    assert len(trials.trials) == 15
+    assert all(-5 <= d["misc"]["vals"]["x"][0] <= 5 for d in trials.trials)
