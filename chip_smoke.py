@@ -6,29 +6,44 @@ Phases, one JSON line each (a failed phase raises and the script exits
 non-zero without the final line):
 
 1. ``card``: the card's name and power limit (``nvidia-smi``), versions.
-2. ``build``: every CUDA kernel of the main path built from ``csrc/`` in
+2. ``build``: every CUDA kernel of the main paths built from ``csrc/`` in
    this checkout, one ``nvcc`` per source started together; seconds and
    the ``-Xptxas -v`` registers, shared memory and spills.
-3. ``kernel_vs_plain``: each kernel against its plain PyTorch version on
-   the card, at the main-path shape and at edge shapes.
-4. ``suggest_vs_cpu``: ``tpe.suggest`` on the card against the same call
+3. ``kernel_vs_plain``: the pair-score kernel against its plain PyTorch
+   version on the card, at the main-path shape and at edge shapes.
+4. ``fused_vs_plain``: the fused suggest kernel, in both draw modes, at the
+   main-path shape, with k=4 segments, on the reference's shape grid and on
+   ties: its winners equal the argmax over the pair-score kernel's scores
+   bit for bit, its EI partials agree with its plain version, and its
+   in-kernel draw with ``gmm_sample``.
+5. ``suggest_vs_cpu``: ``tpe.suggest`` on the card against the same call
    on the CPU (plain versions), both fed one set of uniform streams.
-5. ``main_path``: ``fmin(..., algo=partial(tpe.suggest,
+6. ``main_path``: ``fmin(..., algo=partial(tpe.suggest,
    n_EI_candidates=8192))`` over bench.py's 5-label space with a
    10,000-trial prefilled history, a few suggests past it; the kernels'
    launch counts are set to 0 just before and read just after.
-6. ``profile``: device time by kernel of a few more suggests at that
-   history (``torch.profiler``) and the device's busy share.
-7. ``quickstart``: the README quick-start space (index families,
-   startup then TPE) for 40 evals.
-8. ``timing``: each kernel, its plain version and one PyTorch library call
-   computing the same function, by CUDA events at the main-path shape.
+7. ``fused_main_path``: the same run under ``HYPEROPT_TPU_SCORER=fused``,
+   then also with ``HYPEROPT_TPU_FUSED_DRAW=1``: its own launch counts,
+   and the same trials as ``main_path``.
+8. ``search_health``: the ``SearchStats`` of the default and fused runs
+   agree label for label.
+9. ``profile``: device time by kernel of a few more suggests at that
+   history (``torch.profiler``) and the device's busy share, on the
+   default and on the fused tier.
+10. ``single_label``: ``tpe._continuous_best_core`` (one label's fit, draw,
+    score, argmax) through the single-label pair-score launch, against the
+    plain scorer.
+11. ``quickstart``: the README quick-start space (index families,
+    startup then TPE) for 40 evals.
+12. ``timing``: each kernel, its plain version and one PyTorch library call
+    computing the same function, by CUDA events at the main-path shape.
 
 Then the ``kernels`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of
 ``hyperopt_tpu``; needs one card.
 """
 
+import contextlib
 import json
 import math
 import os
@@ -44,6 +59,7 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 NEG_BIG = -1e30
+DEV = "cuda"  # every tensor of the checks lies on the card
 # the main path at bench.py's size: 10,000-trial history, 8192 candidates,
 # gamma 0.25, linear forgetting 25 -> Kb = bucket(25)+1, Ka = bucket(10000)+1
 N_HISTORY = 10_000
@@ -157,7 +173,7 @@ def pair_case(L, C, kb, ka, seed, real_b=None, real_a=None, dead_below=False):
         wb[0] = 0.0
     wa, ma, sa = mixture(ka, ka if real_a is None else real_a)
     z = torch.rand(L, C, generator=g) * 10.0 - 5.0
-    return z.cuda(), pair_params(wb, mb, sb, wa, ma, sa).contiguous().cuda()
+    return z.to(DEV), pair_params(wb, mb, sb, wa, ma, sa).contiguous().to(DEV)
 
 
 EDGE_SHAPES = {
@@ -205,7 +221,7 @@ def phase_card():
 def phase_build():
     from hyperopt_tpu_torch.ops import kernel_build
 
-    names = ["pair_score"]
+    names = ["pair_score", "fused_suggest"]
     for name in names:  # build from the sources, never from an old library
         kernel_build.library_path(name).unlink(missing_ok=True)
     t0 = time.perf_counter()
@@ -244,6 +260,188 @@ def phase_kernel_vs_plain():
     return main_err
 
 
+# the fused kernel's shapes: (name, kb_real, ka_real, k, n_cand, log_scale,
+# lo, hi) with the below/above mixtures of kb_real + 1 + 3 and
+# ka_real + 1 + 5 components (3 and 5 of them padding).  "main" and "k4"
+# are the main path's (Kb = 33, Ka = 16385 at a 10,000-trial history);
+# the rest is the reference's shape grid, scripts/fused_report.py:51-59
+FUSED_SHAPES = [
+    ("main", 29, 16379, 1, 8192, False, -2.0, 2.0),
+    ("main_log", 29, 16379, 1, 8192, True, -3.0, 1.0),
+    ("k4", 29, 16379, 4, 2048, False, -np.inf, np.inf),
+    ("kb_edge_prior_only", 0, 40, 1, 24, False, -2.0, 2.0),
+    ("kb_edge_one_obs", 1, 7, 2, 100, False, -2.0, 2.0),
+    ("single_component_above", 6, 1, 1, 64, False, -2.0, 2.0),
+    ("unbounded_normal", 5, 40, 2, 50, False, -np.inf, np.inf),
+    ("log_scale_bounded", 25, 300, 4, 33, True, -3.0, 1.0),
+    ("padding_heavy", 3, 17, 1, 24, False, -4.0, 4.0),
+    ("tiled_100k", 25, 2 ** 17, 1, 256, False, -2.0, 2.0),
+]
+FUSED_TOLERANCE = ("per score (seg_m, seg_top, ei_max): the pair-score TOLERANCE; "
+                   "ei_lme, log seg_s and log ei_mass: twice that")
+
+
+def mixture_np(rng, k_real, pad):
+    """scripts/fused_report.py's _mk_mixture: k_real observation
+    components, the prior, and ``pad`` zero-weight padding slots."""
+    n = k_real + 1 + pad
+    w = rng.uniform(0.1, 1.0, n).astype(np.float32)
+    if pad:
+        w[-pad:] = 0.0
+    w = w / w.sum()
+    return (w, rng.normal(0, 2, n).astype(np.float32),
+            rng.uniform(0.3, 2.0, n).astype(np.float32))
+
+
+def fused_inputs(kb_real, ka_real, k, n_cand, log_scale, lo, hi, seed, L=2):
+    """The fused kernel's inputs on the card, made from ``seed``."""
+    from hyperopt_tpu_torch.ops import gmm
+    from hyperopt_tpu_torch.ops.score import pair_params
+
+    rng = np.random.default_rng(seed)
+    mix = [(mixture_np(rng, kb_real, 3), mixture_np(rng, ka_real, 5)) for _ in range(L)]
+
+    def stack(side, i):
+        return torch.tensor(np.stack([m[side][i] for m in mix])).to(DEV)
+
+    B = [stack(0, i) for i in range(3)]
+    A = [stack(1, i) for i in range(3)]
+    low = torch.full((L,), lo, dtype=torch.float32, device=DEV)
+    high = torch.full((L,), hi, dtype=torch.float32, device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    u = torch.rand((2, L, k * n_cand), generator=gen, device=DEV)
+    cands = gmm.gmm_sample(u[0], u[1], *B, low, high, torch.zeros(L, device=DEV),
+                           log_scale)
+    return dict(
+        u1=u[0].contiguous(), u2=u[1].contiguous(), cands=cands.contiguous(),
+        rows=gmm.draw_param_rows(*B, low, high).contiguous(),
+        params=pair_params(*B, *A).contiguous(), kb=B[0].shape[1], k=k, n_cand=n_cand,
+        log_scale=log_scale)
+
+
+def kernel_draws(inp):
+    """Every candidate the fused kernel draws: with k = C segments of one
+    candidate each, the winners are the draws."""
+    from hyperopt_tpu_torch.ops.fused_kernel import fused_suggest
+
+    C = inp["u1"].shape[1]
+    return fused_suggest(inp["u1"], inp["u2"], inp["rows"], inp["params"], inp["kb"], k=C,
+                         n_top=1, log_scale=inp["log_scale"], draw_in_kernel=True)[0]
+
+
+def ulp_dist(a, b):
+    """Distance in units in the last place between f32 tensors."""
+    def key(x):
+        i = x.contiguous().view(torch.int32).long()
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+    return (key(a) - key(b)).abs()
+
+
+def argmax_reference(x, inp):
+    """``(win, idx)`` by the pair-score kernel and torch.argmax on
+    candidates ``x``: the unfused chain the fused kernel replaces."""
+    from hyperopt_tpu_torch.ops.pair_kernel import pair_score_batched
+
+    L = x.shape[0]
+    z = torch.log(x.clamp(min=1e-12)) if inp["log_scale"] else x
+    s = pair_score_batched(z.contiguous(), inp["params"], inp["kb"])
+    idx = torch.argmax(s.reshape(L, inp["k"], inp["n_cand"]), dim=2)
+    win = x.reshape(L, inp["k"], inp["n_cand"]).gather(2, idx[:, :, None])[:, :, 0]
+    return win, idx, s
+
+
+def check_fused(name, inp, draw):
+    """One shape and draw mode: bitwise winners against the pair-score
+    kernel's argmax, and the EI partials against the plain version."""
+    from hyperopt_tpu_torch.ops.fused_kernel import (
+        ei_from_partials,
+        fused_suggest,
+        fused_suggest_plain,
+    )
+    from hyperopt_tpu_torch.ops.score import pair_score
+
+    kb, k, n_cand, ls = inp["kb"], inp["k"], inp["n_cand"], inp["log_scale"]
+    args = ((inp["u1"], inp["u2"], inp["rows"]) if draw else (inp["cands"], None, None))
+    got = fused_suggest(*args, inp["params"], kb, k, log_scale=ls, draw_in_kernel=draw)
+    plain = fused_suggest_plain(*args, inp["params"], kb, k, log_scale=ls,
+                                draw_in_kernel=draw)
+    row = {}
+    x = inp["cands"]
+    if draw:
+        x = kernel_draws(inp)
+        d = ulp_dist(x, inp["cands"])
+        row.update(draw_bit_equal_share=float((d == 0).double().mean()),
+                   draw_max_ulp=int(d.max()))
+    win_ref, idx_ref, _ = argmax_reference(x, inp)
+    torch.cuda.synchronize()
+    row["win_bitwise"] = bool(torch.equal(got[0].view(torch.int32), win_ref.view(torch.int32)))
+    row["idx_bitwise"] = bool(torch.equal(got[1].long(), idx_ref))
+    # the plain version's scores in f32 and f64 give the tolerance
+    z = torch.log(x.clamp(min=1e-12)) if ls else x
+    ref = pair_score(z, inp["params"], kb)
+    ref64 = pair_score(z.double(), inp["params"].double(), kb)
+    live = ref64.abs() < 1e20
+    plain_err = float((ref.double() - ref64).abs()[live].max()) if bool(live.any()) else 0.0
+    allow = 1e-4 + 1e-5 * float(ref.abs()[live].max()) + 2 * plain_err
+
+    def err(a, b):
+        a, b = a.double(), b.double()
+        same = (a == b)  # equal infinities
+        return float(torch.where(same, 0.0, (a - b).abs()).max())
+
+    C, n_top = k * n_cand, min(16, k * n_cand)
+    ei_got = ei_from_partials(*got[2:], C, n_top)
+    ei_ref = ei_from_partials(*plain[2:], C, n_top)
+    errs = {
+        "seg_m": err(got[2], plain[2]), "seg_top": err(got[4], plain[4]),
+        "log_seg_s": err(got[3].log(), plain[3].log()),
+        "ei_max": err(ei_got[0], ei_ref[0]), "ei_lme": err(ei_got[1], ei_ref[1]),
+        "log_ei_mass": err(ei_got[2].log(), ei_ref[2].log()),
+    }
+    limits = {"seg_m": allow, "seg_top": allow, "ei_max": allow, "ei_lme": 2 * allow,
+              "log_seg_s": 2 * allow, "log_ei_mass": 2 * allow}
+    row.update(allow=allow, errors=errs,
+               partials_ok=all(errs[n] <= limits[n] for n in errs))
+    ok = row["win_bitwise"] and row["idx_bitwise"] and row["partials_ok"]
+    if draw:
+        ok = ok and row["draw_bit_equal_share"] >= 0.99 and row["draw_max_ulp"] <= 2
+    emit("fused_vs_plain", shape=name, draw_in_kernel=draw, kb=kb,
+         ka=inp["params"].shape[2] - kb, k=k, n_cand=n_cand, log_scale=ls, ok=ok, **row,
+         tolerance=FUSED_TOLERANCE)
+    assert ok, (name, draw, row)
+    return errs
+
+
+def phase_fused_vs_plain():
+    from hyperopt_tpu_torch.ops.fused_kernel import fused_suggest
+
+    main_err = None
+    for seed, (name, *spec) in enumerate(FUSED_SHAPES):
+        inp = fused_inputs(*spec, seed=seed)
+        for draw in (False, True):
+            errs = check_fused(name, inp, draw)
+            if name == "main" and not draw:
+                main_err = max(errs.values())
+    # ties: equal scores keep the first index, within a tile and across tiles
+    inp = fused_inputs(*FUSED_SHAPES[0][1:], seed=99, L=1)
+    _, idx, _ = argmax_reference(inp["cands"], inp)
+    i_best = int(idx[0, 0])
+    ties = inp["cands"].clone()
+    for i in (i_best ^ 1, (i_best + 197) % inp["n_cand"]):  # same tile, another tile
+        ties[0, i] = ties[0, i_best]
+    expect = int((ties[0] == ties[0, i_best]).nonzero()[0])
+    got = fused_suggest(ties.contiguous(), None, None, inp["params"], inp["kb"], 1)
+    same = torch.full((1, 200), 0.25, device=DEV)  # every score ties
+    got_same = fused_suggest(same, None, None, inp["params"], inp["kb"], 1)
+    torch.cuda.synchronize()
+    row = {"tie_expect": expect, "tie_got": int(got[1][0, 0]),
+           "all_equal_got": int(got_same[1][0, 0])}
+    emit("fused_vs_plain", shape="ties", **row)
+    assert row["tie_got"] == expect and row["all_equal_got"] == 0, row
+    return main_err
+
+
 def phase_suggest_vs_cpu(T):
     """The port's suggest on the card (CUDA kernel) and on the CPU (plain
     versions) from one set of uniform streams: winners agree."""
@@ -274,7 +472,40 @@ def phase_suggest_vs_cpu(T):
     assert close >= 0.9 * pairs, (close, pairs)
 
 
-def phase_main_path(T, counters):
+@contextlib.contextmanager
+def scorer_env(**env):
+    """Set the scorer switches (``HYPEROPT_TPU_*``) for one run."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def recording_stats(T):
+    """A ``SearchStats`` that also keeps every suggest's snapshot."""
+    from hyperopt_tpu_torch.diagnostics import SearchStats
+
+    class Recording(SearchStats):
+        def record_suggest(self, snapshot=None):
+            super().record_suggest(snapshot)
+            if snapshot is not None:
+                self.snapshots.append(snapshot)
+
+    stats = Recording()
+    stats.snapshots = []
+    return stats
+
+
+def drive_main_path(T, counters, stats):
+    """fmin at the 10,000-trial history for N_SUGGESTS suggests, the launch
+    counts set to 0 just before and read just after; host-clock ms per
+    suggest."""
     trials = prefilled_trials(T, N_HISTORY)
     times = []
 
@@ -289,24 +520,84 @@ def phase_main_path(T, counters):
         c.launches = 0
     T.fmin(bench_objective, bench_space(T.hp), algo=timed_suggest,
            max_evals=N_HISTORY + N_SUGGESTS, trials=trials,
-           rstate=np.random.default_rng(0), show_progressbar=False)
+           rstate=np.random.default_rng(0), show_progressbar=False, search_stats=stats)
     launches = {c.__name__: c.launches for c in counters}
     assert len(trials.trials) == N_HISTORY + N_SUGGESTS
     for doc in trials.trials[N_HISTORY:]:
         check_bench_values({k: v[0] for k, v in doc["misc"]["vals"].items()})
         assert math.isfinite(doc["result"]["loss"])
+    assert len(stats.snapshots) == N_SUGGESTS, len(stats.snapshots)
+    return launches, trials, times
+
+
+def suggested(trials):
+    return [doc["misc"]["vals"] for doc in trials.trials[N_HISTORY:]]
+
+
+def phase_main_path(T, counters):
+    stats = recording_stats(T)
+    launches, trials, times = drive_main_path(T, counters, stats)
     assert launches["pair_score_batched"] == 2 * N_SUGGESTS, launches
+    assert launches["fused_suggest"] == 0, launches
     steady = float(np.median(times[1:]))
     emit("main_path", n_history=N_HISTORY, n_suggests=N_SUGGESTS, n_EI_candidates=N_CAND,
          launches=launches, launches_per_suggest=launches["pair_score_batched"] / N_SUGGESTS,
          suggest_ms_first=times[0], suggest_ms_steady=steady, suggest_ms_all=times)
-    return launches, trials, steady
+    return launches, trials, steady, stats
 
 
-def phase_profile(T, trials, steady_ms, n=3):
+def phase_fused_main_path(T, counters, ref_trials):
+    """The main path on the fused tier, with the candidates drawn by
+    gmm_sample and then in the kernel: 2 fused launches per suggest (one per
+    unquantized family), none of the pair-score kernel, and the same
+    suggestions as the default tier."""
+    runs = {}
+    for draw in ("0", "1"):
+        stats = recording_stats(T)
+        with scorer_env(HYPEROPT_TPU_SCORER="fused", HYPEROPT_TPU_FUSED_DRAW=draw):
+            launches, trials, times = drive_main_path(T, counters, stats)
+        same = [a == b for a, b in zip(suggested(trials), suggested(ref_trials))]
+        steady = float(np.median(times[1:]))
+        emit("fused_main_path", fused_draw=draw == "1", n_history=N_HISTORY,
+             n_suggests=N_SUGGESTS, launches=launches,
+             launches_per_suggest=launches["fused_suggest"] / N_SUGGESTS,
+             trials_equal_to_main_path=sum(same), suggest_ms_first=times[0],
+             suggest_ms_steady=steady, suggest_ms_all=times)
+        assert launches["fused_suggest"] == 2 * N_SUGGESTS, launches
+        assert launches["pair_score_batched"] == 0, launches
+        assert all(same), same
+        runs[draw] = (launches, trials, steady, stats)
+    return runs
+
+
+def phase_search_health(ref_stats, fused_runs):
+    """The default and fused runs' SearchStats: the same labels and split
+    counts, and EI columns within rtol 1e-4, atol 1e-5 (the reference's bar,
+    tests/test_fused_kernel.py:191), suggest for suggest."""
+    worst = 0.0
+    for draw, (_, _, _, stats) in fused_runs.items():
+        for ref, got in zip(ref_stats.snapshots, stats.snapshots):
+            assert ref["labels"].keys() == got["labels"].keys()
+            for lb, r in ref["labels"].items():
+                g = got["labels"][lb]
+                assert (r["nb"], r["na"]) == (g["nb"], g["na"]), (lb, r, g)
+                for col in (
+                    lambda d: d["ei_max"], lambda d: d["ei_max"] - d["ei_flatness"],
+                    lambda d: d["ei_top_mass"],
+                ):
+                    a, b = col(r), col(g)
+                    assert abs(a - b) <= 1e-5 + 1e-4 * abs(a), (draw, lb, a, b)
+                    worst = max(worst, abs(a - b) / (1e-5 + 1e-4 * abs(a)))
+        health = (ref_stats.health()["state"], stats.health()["state"])
+        emit("search_health", fused_draw=draw == "1", n_suggests=len(stats.snapshots),
+             labels=sorted(ref_stats.snapshots[-1]["labels"]), health=health,
+             worst_share_of_tolerance=worst, tolerance="rtol 1e-4, atol 1e-5")
+
+
+def phase_profile(T, trials, steady_ms, tier, n=3):
     """Where a steady-state suggest's time goes at the main path's history:
     device time by kernel (``torch.profiler``) against the unprofiled
-    host-clock time of ``main_path``."""
+    host-clock time of the run that made ``trials``."""
     from torch.profiler import ProfilerActivity, profile
 
     domain = T.Domain(bench_objective, bench_space(T.hp))
@@ -329,11 +620,76 @@ def phase_profile(T, trials, steady_ms, n=3):
     ]
     device_ms = sum(ms for _, ms, _ in kernels)
     top = sorted(kernels, key=lambda k: -k[1])[:8]
-    emit("profile", n_suggests=n, profiled_wall_ms_per_suggest=wall_ms,
+    emit("profile", tier=tier, n_suggests=n, profiled_wall_ms_per_suggest=wall_ms,
          device_ms_per_suggest=device_ms if device_ms else "not measured",
          device_busy_share=device_ms / steady_ms if device_ms else "not measured",
          device_kernels_per_suggest=sum(c for _, _, c in kernels),
          top=[{"kernel": k[:80], "ms": ms, "per_suggest": c} for k, ms, c in top])
+
+
+def single_label_case(PB, nb, PA, na, n_cand, seed):
+    """``_continuous_best_core``'s arguments on the card: observations in
+    [-4, 4], prior N(0, 10) truncated to [-5, 5], k=1."""
+    rng = np.random.default_rng(seed)
+    below = np.zeros(PB, np.float32)
+    below[:nb] = rng.uniform(-1.0, 1.0, nb)
+    above = np.zeros(PA, np.float32)
+    above[:na] = rng.uniform(-4.0, 4.0, na)
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    u = torch.rand((2, n_cand), generator=gen, device=DEV)
+    return (u[0], u[1], torch.tensor(below).to(DEV), nb, torch.tensor(above).to(DEV), na,
+            1.0, 0.0, 10.0, -5.0, 5.0, 0.0)
+
+
+def single_label_scores(args, values):
+    """The plain scores of ``values`` under the core's fitted mixtures, in
+    f32 and in f64."""
+    from hyperopt_tpu_torch.ops import parzen
+    from hyperopt_tpu_torch.ops.score import pair_params, pair_score
+
+    _, _, below, nb, above, na, pw, pm, ps = args[:9]
+    dev = below.device
+    one = torch.ones(1, device=dev)
+    B = parzen.adaptive_parzen_normal_padded(below[None], torch.tensor([nb], device=dev),
+                                             pw, pm * one, ps * one, 25)
+    A = parzen.adaptive_parzen_normal_padded(above[None], torch.tensor([na], device=dev),
+                                             pw, pm * one, ps * one, 25)
+    z, params, kb = values.reshape(1, -1), pair_params(*B, *A), B[0].shape[1]
+    return pair_score(z, params, kb)[0], pair_score(z.double(), params.double(), kb)[0]
+
+
+def phase_single_label(counters):
+    """``_continuous_best_core`` at __graft_entry__.entry's shapes and at
+    the main path's widths: one single-label kernel launch each, and the
+    winner of the plain scorer (``HYPEROPT_TPU_SCORER=xla``) or, at a
+    near-tie, one whose plain score is within the pair-score TOLERANCE of
+    that winner's."""
+    from hyperopt_tpu_torch.algos.tpe import _continuous_best_core
+    from hyperopt_tpu_torch.ops.pair_kernel import pair_score_single
+
+    for c in counters:
+        c.launches = 0
+    for name, shape in {"graft_entry": (16, 10, 64, 40, 256),
+                        "main": (32, 25, 16384, 10000, N_CAND)}.items():
+        args = single_label_case(*shape, seed=len(name))
+        kw = dict(k=1, n_cand=shape[4], lf=25, log_scale=False, quantized=False)
+        before = pair_score_single.launches
+        best = _continuous_best_core(*args, **kw)
+        with scorer_env(HYPEROPT_TPU_SCORER="xla"):
+            best_plain = _continuous_best_core(*args, **kw)
+        torch.cuda.synchronize()
+        s, s64 = single_label_scores(args, torch.cat([best, best_plain]))
+        allow, _ = allowance(s, s64)
+        gap = float((s[0] - s[1]).abs())
+        row = {"launches": pair_score_single.launches - before,
+               "winner": float(best[0]), "winner_plain": float(best_plain[0]),
+               "equal": bool(torch.equal(best, best_plain)), "score_gap": gap,
+               "allow": float(allow.max())}
+        emit("single_label", shape=name, PB=shape[0], PA=shape[2], n_cand=shape[4],
+             kb=shape[0] + 1, ka=shape[2] + 1, **row, tolerance=TOLERANCE)
+        assert row["launches"] == 1 and (row["equal"] or gap <= float(allow.min())), row
+        assert bool(torch.isfinite(best).all()) and -5.0 <= float(best[0]) <= 5.0, row
+    return {c.__name__: c.launches for c in counters}
 
 
 def phase_quickstart(T, counters):
@@ -358,41 +714,117 @@ def bench_like_quickstart_objective(c):
     return (np.log(c["lr"]) + 7.0) ** 2 + c["layers"] + c["arch"].get("width", 0) / 1024.0
 
 
-def phase_timing(main_err, launches):
-    from hyperopt_tpu_torch.ops.pair_kernel import pair_score_batched
+def bound(cells, n_bytes):
+    ops_ms = OPS_PER_CELL * cells / PEAK_F32_FLOPS * 1e3
+    bytes_ms = n_bytes / PEAK_BYTES * 1e3
+    return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
+
+
+def phase_timing(errs, launches):
+    """Each kernel, its plain version and a library yardstick at the main
+    path's shapes, by CUDA events.  The library calls are timed as
+    yardsticks only; the port never calls them."""
+    from hyperopt_tpu_torch.algos.tpe_device import _ei_diag
+    from hyperopt_tpu_torch.ops.fused_kernel import fused_suggest, fused_suggest_plain
+    from hyperopt_tpu_torch.ops.pair_kernel import pair_score_batched, pair_score_single
     from hyperopt_tpu_torch.ops.score import pair_score
 
-    s = MAIN_SHAPE
-    z, params = pair_case(seed=4, **s)
-    L, C, K, kb = s["L"], s["C"], s["kb"] + s["ka"], s["kb"]
-    kernel_ms = cuda_ms(lambda: pair_score_batched(z, params, kb), iters=200)
-    plain_ms = cuda_ms(lambda: pair_score(z, params, kb), iters=10)
-
-    def library():
-        # one f32 product materializing [L, C, K], then two logsumexps;
-        # timed as a yardstick only, the port never calls it
+    def library_scores(z, params, kb):
+        # one f32 product materializing [L, C, K], then two logsumexps
         feats = torch.stack([z * z, z, torch.ones_like(z)], dim=-1)
         comp = torch.matmul(feats, params)
         return torch.logsumexp(comp[..., :kb], -1) - torch.logsumexp(comp[..., kb:], -1)
 
-    library_ms = cuda_ms(library, iters=10)
-    cells = L * C * K
-    ops_ms = OPS_PER_CELL * cells / PEAK_F32_FLOPS * 1e3
-    bytes_ms = 4 * (2 * L * C + 3 * L * K) / PEAK_BYTES * 1e3
-    row = {
+    rows = []
+    s = MAIN_SHAPE
+    z, params = pair_case(seed=4, **s)
+    L, C, K, kb = s["L"], s["C"], s["kb"] + s["ka"], s["kb"]
+    ms = cuda_ms(lambda: pair_score_batched(z, params, kb), iters=200)
+    b_ms, b_by = bound(L * C * K, 4 * (2 * L * C + 3 * L * K))
+    rows.append({
         "name": "pair_score_batched", "route": "cuda",
         "source": "hyperopt_tpu_torch/csrc/pair_score.cu",
         "replaces": "hyperopt_tpu/ops/pallas_gmm.py:127",
-        "launches": launches["pair_score_batched"], "max_abs_err": main_err,
-        "ms": kernel_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-        "bound_ms": max(ops_ms, bytes_ms),
-        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-        "library_ms": library_ms,
-        "cells": cells, "ops_per_cell": OPS_PER_CELL,
-    }
-    emit("timing", shape=s, **{k: row[k] for k in ("ms", "plain_ms", "library_ms",
-                                                   "bound_ms", "bound_by")})
-    return [row]
+        "launches": launches["pair_score_batched"], "max_abs_err": errs["pair_score_batched"],
+        "ms": ms, "kernel_ms": ms, "plain_ms": cuda_ms(lambda: pair_score(z, params, kb), 10),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": cuda_ms(lambda: library_scores(z, params, kb), 10),
+        "cells": L * C * K, "ops_per_cell": OPS_PER_CELL,
+    })
+
+    # the fused kernel on the main path's family shape, both draw modes
+    inp = fused_inputs(*FUSED_SHAPES[0][1:], seed=4)
+    x, p, kb, n_top = inp["cands"], inp["params"], inp["kb"], 16
+    L, C, K = x.shape[0], x.shape[1], p.shape[2]
+
+    def unfused():
+        sc = pair_score_batched(x, p, kb)
+        torch.argmax(sc, dim=1)
+        _ei_diag(sc)
+
+    def library():
+        sc = library_scores(x, p, kb)
+        torch.argmax(sc, dim=1)
+        torch.topk(sc, n_top, dim=1)
+
+    ms = cuda_ms(lambda: fused_suggest(x, None, None, p, kb, 1), iters=200)
+    ms_draw = cuda_ms(lambda: fused_suggest(inp["u1"], inp["u2"], inp["rows"], p, kb, 1,
+                                            draw_in_kernel=True), iters=200)
+    b_ms, b_by = bound(L * C * K, 4 * (L * C + 3 * L * K + L * (4 + n_top)))
+    rows.append({
+        "name": "fused_suggest", "route": "cuda",
+        "source": "hyperopt_tpu_torch/csrc/fused_suggest.cu",
+        "replaces": "hyperopt_tpu/ops/pallas_fused.py:126",
+        "launches": launches["fused_suggest"], "launches_draw": launches["fused_suggest_draw"],
+        "max_abs_err": errs["fused_suggest"], "ms": ms, "kernel_ms": ms, "ms_draw": ms_draw,
+        "plain_ms": cuda_ms(lambda: fused_suggest_plain(x, None, None, p, kb, 1), 10),
+        "unfused_ms": cuda_ms(unfused, 100), "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": cuda_ms(library, 10), "cells": L * C * K,
+        "ops_per_cell": OPS_PER_CELL,
+    })
+
+    # the single-label launch at the main path's widths, L = 1
+    s1 = dict(MAIN_SHAPE, L=1)
+    z, params = pair_case(seed=5, **s1)
+    C, K, kb = s1["C"], s1["kb"] + s1["ka"], s1["kb"]
+    z1, p1 = z[0].contiguous(), params[0].contiguous()
+    ms = cuda_ms(lambda: pair_score_single(z1, p1, kb), iters=200)
+    b_ms, b_by = bound(C * K, 4 * (2 * C + 3 * K))
+    rows.append({
+        "name": "pair_score_single", "route": "cuda",
+        "source": "hyperopt_tpu_torch/csrc/pair_score.cu (L=1 launch)",
+        "replaces": "hyperopt_tpu/ops/pallas_gmm.py:119",
+        "launches": launches["pair_score_single"], "max_abs_err": errs["pair_score_single"],
+        "ms": ms, "kernel_ms": ms, "plain_ms": cuda_ms(lambda: pair_score(z, params, kb), 10),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": cuda_ms(lambda: library_scores(z, params, kb), 10),
+        "cells": C * K, "ops_per_cell": OPS_PER_CELL,
+    })
+    for r in rows:
+        emit("timing", kernel=r["name"], **{k: r[k] for k in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by") if k in r},
+            **({"unfused_ms": r["unfused_ms"], "ms_draw": r["ms_draw"]}
+               if "unfused_ms" in r else {}))
+    return rows
+
+
+def single_label_err():
+    """The single-label launch against the plain version at L=1 and the
+    main path's widths: its largest |difference|, held to TOLERANCE."""
+    from hyperopt_tpu_torch.ops.pair_kernel import pair_score_single
+    from hyperopt_tpu_torch.ops.score import pair_score
+
+    s1 = dict(MAIN_SHAPE, L=1)
+    z, params = pair_case(seed=5, **s1)
+    got = pair_score_single(z[0].contiguous(), params[0].contiguous(), s1["kb"])
+    ref = pair_score(z, params, s1["kb"])
+    ref64 = pair_score(z.double(), params.double(), s1["kb"])
+    allow, _ = allowance(ref, ref64)
+    err = (got[None] - ref).abs()
+    emit("kernel_vs_plain", shape="single_main", kernel="pair_score_single", **s1,
+         max_abs_err=float(err.max()), ok=bool((err <= allow).all()), tolerance=TOLERANCE)
+    assert bool((err <= allow).all())
+    return float(err.max())
 
 
 def main():
@@ -402,20 +834,33 @@ def main():
     # the plain versions and the library yardstick run IEEE f32 matmuls
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    for k in ("HYPEROPT_TPU_SCORER", "HYPEROPT_TPU_FUSED", "HYPEROPT_TPU_FUSED_DRAW"):
+        os.environ.pop(k, None)  # the default tier unless a phase sets one
     import hyperopt_tpu_torch as T
-    from hyperopt_tpu_torch.ops.pair_kernel import pair_score_batched
+    from hyperopt_tpu_torch.ops.fused_kernel import fused_suggest
+    from hyperopt_tpu_torch.ops.pair_kernel import pair_score_batched, pair_score_single
 
     assert "jax" not in sys.modules and not any(
         m == "hyperopt_tpu" or m.startswith("hyperopt_tpu.") for m in sys.modules)
-    counters = [pair_score_batched]
+    counters = [pair_score_batched, fused_suggest, pair_score_single]
     smi = phase_card()
     phase_build()
-    main_err = phase_kernel_vs_plain()
+    errs = {"pair_score_batched": phase_kernel_vs_plain(),
+            "fused_suggest": phase_fused_vs_plain(),
+            "pair_score_single": single_label_err()}
     phase_suggest_vs_cpu(T)
-    launches, trials, steady_ms = phase_main_path(T, counters)
-    phase_profile(T, trials, steady_ms)
+    launches, trials, steady_ms, stats = phase_main_path(T, counters)
+    fused_runs = phase_fused_main_path(T, counters, trials)
+    phase_search_health(stats, fused_runs)
+    phase_profile(T, trials, steady_ms, "pallas")
+    with scorer_env(HYPEROPT_TPU_SCORER="fused"):
+        phase_profile(T, fused_runs["0"][1], fused_runs["0"][2], "fused")
+    single = phase_single_label(counters)
     phase_quickstart(T, counters)
-    kernels = phase_timing(main_err, launches)
+    launches = {**launches, "fused_suggest": fused_runs["0"][0]["fused_suggest"],
+                "fused_suggest_draw": fused_runs["1"][0]["fused_suggest"],
+                "pair_score_single": single["pair_score_single"]}
+    kernels = phase_timing(errs, launches)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

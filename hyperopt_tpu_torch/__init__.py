@@ -34,7 +34,7 @@ from .base import (
     Trials,
     trials_from_docs,
 )
-from .early_stop import no_progress_loss
+from .early_stop import no_progress_loss, no_progress_stop
 from .exceptions import (
     AllTrialsFailed,
     BadSearchSpace,
@@ -83,6 +83,7 @@ __all__ = [
     "generate_trials_to_calculate",
     "hp",
     "no_progress_loss",
+    "no_progress_stop",
     "partial",
     "pyll",
     "rand",

@@ -12,7 +12,11 @@ Each label's posterior step — Parzen fit of l(x) and g(x), candidate draw
 from l(x), log l − log g scoring, argmax — runs on the device over the
 device-resident history (``tpe_device``), one label-stacked pass per
 distribution family, with the O(candidates × history) pair score in a
-hand-written CUDA kernel.
+hand-written CUDA kernel.  The scorer tier (``ops.score.resolve_scorer``:
+``HYPEROPT_TPU_SCORER``, ``HYPEROPT_TPU_FUSED``; ``HYPEROPT_TPU_FUSED_DRAW``
+for the fused tier's in-kernel draw) is resolved once per suggest, and
+each suggest publishes its search-health snapshot
+(``diagnostics.last_suggest_diag``).
 
 Config is the reference's *partial-as-config* pattern:
 ``functools.partial(tpe.suggest, gamma=0.3, n_EI_candidates=1000)``.
@@ -27,10 +31,14 @@ import logging
 import numpy as np
 import torch
 
+from .. import diagnostics as sdiag
 from ..base import miscs_update_idxs_vals
 from ..device import resolve_device
 from ..ops import gmm as gmm_ops
 from ..ops import parzen as parzen_ops
+from ..ops.fused_kernel import resolve_fused_draw
+from ..ops.pair_kernel import pair_score_single
+from ..ops.score import pair_params, pair_score, resolve_scorer
 from ..vectorize import branch_activity, idxs_vals_from_batch
 from . import rand
 
@@ -200,6 +208,62 @@ def _label_uniforms(seed, n_labels, n, device):
     return out
 
 
+def _continuous_best_core(
+    u_comp,        # [k*n_cand] f32 uniforms: component pick
+    u_val,         # [k*n_cand] f32 uniforms: value draw
+    below,         # [CAP_B] f32 fit-space observations (padded)
+    n_below,       # int
+    above,         # [CAP_A] f32
+    n_above,       # int
+    prior_weight,
+    prior_mu,
+    prior_sigma,
+    low,
+    high,
+    q,
+    k: int,
+    n_cand: int,
+    lf: int,
+    log_scale: bool,
+    quantized: bool,
+):
+    """One label's fit, draw, score and argmax: the ``[k]`` best values.
+
+    Reference: ``hyperopt_tpu/algos/tpe.py`` ``_continuous_best_core``,
+    which takes a PRNG key; here the two uniform streams come in, as for
+    ``gmm_sample``.  Unquantized labels score through the single-label
+    pair-score kernel (``pair_score_single``) unless the tier is ``xla``
+    (the plain ``pair_score``) or ``exact`` (the normalized lpdf).  The
+    device is the one ``below`` lies on."""
+    dev = below.device
+
+    def vec(v):
+        return torch.as_tensor(v, dtype=torch.float32, device=dev).reshape(1)
+
+    pm, ps = vec(prior_mu), vec(prior_sigma)
+    lo, hi, qq = vec(low), vec(high), vec(q)
+    wb, mb, sb = parzen_ops.adaptive_parzen_normal_padded(
+        below[None], torch.as_tensor([int(n_below)], device=dev), float(prior_weight),
+        pm, ps, lf)
+    wa, ma, sa = parzen_ops.adaptive_parzen_normal_padded(
+        above[None], torch.as_tensor([int(n_above)], device=dev), float(prior_weight),
+        pm, ps, lf)
+    cand = gmm_ops.gmm_sample(u_comp[None], u_val[None], wb, mb, sb, lo, hi, qq, log_scale)
+    scorer = resolve_scorer()
+    if quantized or scorer == "exact":
+        score = (gmm_ops.gmm_lpdf(cand, wb, mb, sb, lo, hi, qq, log_scale, quantized)
+                 - gmm_ops.gmm_lpdf(cand, wa, ma, sa, lo, hi, qq, log_scale, quantized))[0]
+    else:
+        z = torch.log(cand.clamp(min=EPS)) if log_scale else cand
+        params = pair_params(wb, mb, sb, wa, ma, sa)
+        if scorer == "xla":
+            score = pair_score(z, params, wb.shape[1])[0]
+        else:
+            score = pair_score_single(z[0].contiguous(), params[0].contiguous(), wb.shape[1])
+    idx = torch.argmax(score.reshape(k, n_cand), dim=1)
+    return cand[0].reshape(k, n_cand).gather(1, idx[:, None])[:, 0]
+
+
 # bounded-quantized families with at most this many grid values score on
 # the bucket grid (one exact lpdf per DISTINCT value, gathered per
 # candidate) instead of per candidate — see tpe_device n_buckets
@@ -292,6 +356,12 @@ def _suggest_device(
     keep_mask = dh.keep_mask(mask)
 
     uniforms = _label_uniforms(seed, dh.n_labels, k * n_cand, dev)
+    # the tier is resolved once per suggest; only fused programs carry the
+    # in-kernel-draw switch
+    scorer = resolve_scorer()
+    tier = {"scorer": scorer}
+    if scorer == "fused":
+        tier["fused_draw"] = resolve_fused_draw()
     specs = domain.space.specs
 
     # hard locks: value pinned, posterior skipped (activity still derived)
@@ -338,6 +408,7 @@ def _suggest_device(
                 cap_b=cap_b, k=k, n_cand=n_cand, lf=lf,
                 log_scale=fam.log_scale, quantized=fam.quantized,
                 n_buckets=_family_bucket_count(fam, k * n_cand) if fam.quantized else 0,
+                **tier,
             )
             requests.append((
                 "cont",
@@ -362,14 +433,22 @@ def _suggest_device(
             ))
         req_fams.append(fam)
 
-    outs, _diags = td.multi_family_suggest(requests)
+    outs, diags = td.multi_family_suggest(requests)
     chosen_vals = {}
     for fam, best in zip(req_fams, outs):
         for i, lb in enumerate(fam.labels):
             if lb not in hard:
                 chosen_vals[lb] = fam.from_fit_space(i, best[i])
     chosen_vals.update(hard)
-    return _emit_docs(new_ids, domain, trials, chosen_vals, k)
+    docs = _emit_docs(new_ids, domain, trials, chosen_vals, k)
+    if sdiag.enabled():
+        # published after the docs are built: a suggest that raises leaves
+        # nothing for a later one to claim
+        sdiag.publish_suggest_diag(sdiag.snapshot_from_fused(
+            req_fams, diags, n_below=n_below, gamma=float(gamma), n_eff=n_eff,
+            k=k, n_cand=n_cand,
+        ))
+    return docs
 
 
 def suggest(

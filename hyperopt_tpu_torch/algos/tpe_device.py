@@ -37,10 +37,11 @@ import torch
 
 from ..device import resolve_device
 from ..diagnostics import D_EI_TOP_K, DIAG_COLS
+from ..ops import fused_kernel
 from ..ops import gmm as gmm_ops
 from ..ops import parzen as parzen_ops
 from ..ops.pair_kernel import pair_score_batched
-from ..ops.score import pair_params
+from ..ops.score import pair_params, pair_score
 
 EPS = 1e-12
 _BIG = np.float32(np.finfo(np.float32).max)
@@ -406,7 +407,7 @@ def _ei_diag(score2):
     ``log l − log g`` can be ±inf and their difference NaN, which must
     not poison the reductions (the winner argmax reads the RAW scores)."""
     C = score2.shape[1]
-    s = torch.nan_to_num(score2, nan=-1e30, posinf=1e30, neginf=-1e30).clamp(-1e30, 1e30)
+    s = fused_kernel.sanitize_scores(score2)
     smax = s.amax(dim=1)
     lse = torch.logsumexp(s, dim=1)
     lme = lse - math.log(C)
@@ -456,16 +457,24 @@ def _family_suggest_core(
     log_scale: bool,
     quantized: bool,
     n_buckets: int = 0,
+    scorer: str = "pallas",
+    fused_draw: bool = False,
 ):
     """γ-split → pack → Parzen fits → truncated-GMM draw → log l − log g →
     per-id argmax, stacked over the family's L labels.  Returns winning
     values ``[L, k]`` (fit space) and the ``[L, DIAG_COLS]`` row.
 
-    Unquantized labels score through the pair-score kernel
-    (``pair_score_batched``: the CUDA kernel on the card).  Quantized
-    labels score by the exact CDF-bucket lpdf: ``n_buckets > 0`` (BOUNDED
-    families) evaluates it once per grid value ([L, B, K], B ≈ dozens) and
-    gathers per candidate; unbounded ones evaluate it per candidate."""
+    ``scorer`` (``ops.score.resolve_scorer``) picks how unquantized labels
+    score: ``pallas`` through the pair-score kernel (``pair_score_batched``:
+    the CUDA kernel on the card), ``xla`` through the plain ``pair_score``,
+    ``exact`` through the normalized ``gmm_lpdf``, and ``fused`` through
+    the fused suggest kernel (:func:`_fused_winners`), which returns only
+    the winners and the EI partials.  ``fused_draw`` (fused only) moves the
+    candidate draw into that kernel too: no candidate tensor is made.
+    Quantized labels score by the exact CDF-bucket lpdf: ``n_buckets > 0``
+    (BOUNDED families) evaluates it once per grid value ([L, B, K],
+    B ≈ dozens) and gathers per candidate; unbounded ones evaluate it per
+    candidate."""
     ranks = _loss_ranks(losses, keep_mask)
     below, nbs, above, nas = _split_pack(
         obs, pos, counts, ranks, keep_mask, n_below, lock_center, lock_radius,
@@ -476,35 +485,63 @@ def _family_suggest_core(
                                                           pm, ps, lf)
     wa, ma, sa = parzen_ops.adaptive_parzen_normal_padded(above, nas, prior_weight,
                                                           pm, ps, lf)
-    cands = gmm_ops.gmm_sample(u[:, 0], u[:, 1], wb, mb, sb, lo, hi, qq, log_scale)
-    if quantized and n_buckets > 0:
-        # bucket-grid scoring: the exact quantized lpdf on each label's
-        # [B] value grid, gathered per candidate
-        raw_lo = torch.exp(lo) if log_scale else lo  # bounds are fit-space
-        qe = qq.clamp(min=EPS)
-        j0 = torch.floor(raw_lo / qe) - 1.0
-        grid = qe[:, None] * (j0[:, None] + torch.arange(n_buckets, device=obs.device))
-        s = gmm_ops.gmm_lpdf(grid, wb, mb, sb, lo, hi, qq, log_scale, True) \
-            - gmm_ops.gmm_lpdf(grid, wa, ma, sa, lo, hi, qq, log_scale, True)
-        idx = (torch.round(cands / qe[:, None]) - j0[:, None]).clamp(0, n_buckets - 1)
-        score = s.gather(1, idx.to(torch.int64))
-    elif quantized:
-        score = gmm_ops.gmm_lpdf(cands, wb, mb, sb, lo, hi, qq, log_scale, True) \
-            - gmm_ops.gmm_lpdf(cands, wa, ma, sa, lo, hi, qq, log_scale, True)
-    else:
-        # p_accept constants and the lognormal Jacobian are constant or
-        # cancel in l−g, so the pair score keeps the argmax
-        z = torch.log(cands.clamp(min=EPS)) if log_scale else cands
+    if not quantized and scorer == "fused":
         params = pair_params(wb, mb, sb, wa, ma, sa)  # [L, 3, Kb+Ka]
-        score = pair_score_batched(z.contiguous(), params.contiguous(), wb.shape[1])
-    ei_max, ei_lme, ei_mass = _ei_diag(score)
+        if fused_draw:
+            u1, u2, rows = u[:, 0], u[:, 1], gmm_ops.draw_param_rows(wb, mb, sb, lo, hi)
+        else:
+            u1 = gmm_ops.gmm_sample(u[:, 0], u[:, 1], wb, mb, sb, lo, hi, qq, log_scale)
+            u2 = rows = None
+        win, (ei_max, ei_lme, ei_mass) = _fused_winners(
+            u1, u2, rows, params, wb.shape[1], k=k, n_cand=n_cand, log_scale=log_scale)
+    else:
+        cands = gmm_ops.gmm_sample(u[:, 0], u[:, 1], wb, mb, sb, lo, hi, qq, log_scale)
+        if quantized and n_buckets > 0:
+            # bucket-grid scoring: the exact quantized lpdf on each label's
+            # [B] value grid, gathered per candidate
+            raw_lo = torch.exp(lo) if log_scale else lo  # bounds are fit-space
+            qe = qq.clamp(min=EPS)
+            j0 = torch.floor(raw_lo / qe) - 1.0
+            grid = qe[:, None] * (j0[:, None] + torch.arange(n_buckets, device=obs.device))
+            s = gmm_ops.gmm_lpdf(grid, wb, mb, sb, lo, hi, qq, log_scale, True) \
+                - gmm_ops.gmm_lpdf(grid, wa, ma, sa, lo, hi, qq, log_scale, True)
+            idx = (torch.round(cands / qe[:, None]) - j0[:, None]).clamp(0, n_buckets - 1)
+            score = s.gather(1, idx.to(torch.int64))
+        elif quantized or scorer == "exact":
+            score = gmm_ops.gmm_lpdf(cands, wb, mb, sb, lo, hi, qq, log_scale, quantized) \
+                - gmm_ops.gmm_lpdf(cands, wa, ma, sa, lo, hi, qq, log_scale, quantized)
+        else:
+            # p_accept constants and the lognormal Jacobian are constant or
+            # cancel in l−g, so the pair score keeps the argmax
+            z = torch.log(cands.clamp(min=EPS)) if log_scale else cands
+            params = pair_params(wb, mb, sb, wa, ma, sa)  # [L, 3, Kb+Ka]
+            scorer_fn = pair_score if scorer == "xla" else pair_score_batched
+            score = scorer_fn(z.contiguous(), params.contiguous(), wb.shape[1])
+        ei_max, ei_lme, ei_mass = _ei_diag(score)
+        win = _argmax_winners(cands, score, k, n_cand)
     sig_min, sig_mean, sig_floor = _sigma_diag(wb, sb, nbs, ps)
     diag = torch.stack(
         [nbs.to(torch.float32), nas.to(torch.float32), ei_max, ei_lme, ei_mass,
          sig_min, sig_mean, sig_floor],
         dim=1,
     )  # [L, DIAG_COLS]
-    return _argmax_winners(cands, score, k, n_cand), diag
+    return win, diag
+
+
+def _fused_winners(u1, u2, rows, params, k_below, *, k, n_cand, log_scale):
+    """The fused suggest kernel (``ops.fused_kernel.fused_suggest``) and its
+    EI partials combined into the ``_ei_diag`` reductions.
+
+    ``rows`` None: ``u1`` holds ``gmm_sample``'s candidates.  Else ``u1``/
+    ``u2`` are the raw uniforms and ``rows`` the below mixture's draw
+    table, and the kernel draws.  Reference: ``tpe_device.py:913-955``."""
+    n_top = min(D_EI_TOP_K, k * n_cand)
+    draw = rows is not None
+    win, _idx, seg_m, seg_s, seg_top = fused_kernel.fused_suggest(
+        u1.contiguous(), u2.contiguous() if draw else None,
+        rows.contiguous() if draw else None, params.contiguous(), k_below,
+        k=k, n_top=n_top, log_scale=log_scale, draw_in_kernel=draw)
+    return win, fused_kernel.ei_from_partials(seg_m, seg_s, seg_top, k * n_cand, n_top)
 
 
 def _index_family_suggest_core(

@@ -27,6 +27,8 @@
 // - the per-lane (m, s) partials merge with warp shuffles at the end of
 //   each region, so the grid is (C / (WARPS * CPW), L) blocks: 256 at the
 //   main-path shape, about two per SM on 132 SMs.
+// The loop itself (pair_scores) lives in pair_lse.cuh, shared with
+// fused_suggest.cu so that the two kernels give bit-identical scores.
 // The running max starts at NEG_BIG (-1e30), not -inf: a padding column
 // (logcoef NEG_BIG) or a product that overflows to -inf then adds zero
 // mass instead of NaN.  Ragged edges of C and of both regions of K are
@@ -38,75 +40,13 @@
 
 #include <cuda_runtime.h>
 
+#include "pair_lse.cuh"
+
 namespace {
 
-constexpr float NEG_BIG = -1e30f;
-constexpr int WARPS = 8;               // warps per block
-constexpr int CPW = 8;                 // candidates per warp (per lane, in registers)
-constexpr int TC = WARPS * CPW;        // candidates per block
-constexpr int THREADS = WARPS * 32;
-constexpr int TK = 1024;               // components per shared-memory tile
+using namespace pair_lse;
 
-// one online logsumexp step: (m, s) <- (max(m, c), s*exp(m-max) + exp(c-max))
-__device__ __forceinline__ void lse_push(float& m, float& s, float c) {
-  const float d = c - m;
-  const float e = __expf(-fabsf(d));
-  const bool up = d > 0.0f;
-  s = up ? fmaf(s, e, 1.0f) : s + e;
-  m = up ? c : m;
-}
-
-__device__ __forceinline__ void lse_merge(float& m, float& s, float m2, float s2) {
-  const float mm = fmaxf(m, m2);
-  s = s * __expf(m - mm) + s2 * __expf(m2 - mm);
-  m = mm;
-}
-
-// Logsumexp over components [start, start + size) of one label's block p
-// ([3, K], row-major) for the CPW candidates of this lane's warp.  Every
-// thread of the block calls it with the same start and size.
-__device__ __forceinline__ void region_lse(const float* __restrict__ p, int K, int start,
-                                           int size, const float (&f0)[CPW],
-                                           const float (&f1)[CPW], float (&m)[CPW],
-                                           float (&s)[CPW], float* __restrict__ tile,
-                                           int lane) {
-#pragma unroll
-  for (int c = 0; c < CPW; ++c) {
-    m[c] = NEG_BIG;
-    s[c] = 0.0f;
-  }
-  for (int t0 = 0; t0 < size; t0 += TK) {
-    const int len = min(TK, size - t0);
-    __syncthreads();  // every warp is done with the previous tile
-    for (int j = threadIdx.x; j < len; j += THREADS) {
-      const int col = start + t0 + j;
-      tile[j] = p[col];
-      tile[TK + j] = p[K + col];
-      tile[2 * TK + j] = p[2 * K + col];
-    }
-    __syncthreads();
-    for (int j = lane; j < len; j += 32) {
-      const float p0 = tile[j];
-      const float p1 = tile[TK + j];
-      const float p2 = tile[2 * TK + j];
-#pragma unroll
-      for (int c = 0; c < CPW; ++c) {
-        lse_push(m[c], s[c], fmaf(f0[c], p0, fmaf(f1[c], p1, p2)));
-      }
-    }
-  }
-#pragma unroll
-  for (int c = 0; c < CPW; ++c) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float m2 = __shfl_xor_sync(0xffffffffu, m[c], off);
-      const float s2 = __shfl_xor_sync(0xffffffffu, s[c], off);
-      lse_merge(m[c], s[c], m2, s2);
-    }
-  }
-}
-
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 pair_score_kernel(const float* __restrict__ z, const float* __restrict__ params,
                   float* __restrict__ out, int C, int K, int k_below) {
   __shared__ float tile[3 * TK];
@@ -115,24 +55,14 @@ pair_score_kernel(const float* __restrict__ z, const float* __restrict__ params,
   const int lane = threadIdx.x & 31;
   const int c0 = blockIdx.x * TC + warp * CPW;
   const float* zl = z + static_cast<size_t>(l) * C;
-  const float* pl = params + static_cast<size_t>(l) * 3 * K;
 
-  float f0[CPW], f1[CPW];
+  float zc[CPW], score[CPW];
+#pragma unroll
+  for (int c = 0; c < CPW; ++c) zc[c] = (c0 + c < C) ? zl[c0 + c] : 0.0f;
+  pair_scores(params + static_cast<size_t>(l) * 3 * K, K, k_below, zc, score, tile, lane);
 #pragma unroll
   for (int c = 0; c < CPW; ++c) {
-    const float zc = (c0 + c < C) ? zl[c0 + c] : 0.0f;
-    f0[c] = zc * zc;
-    f1[c] = zc;
-  }
-  float mb[CPW], sb[CPW], ma[CPW], sa[CPW];
-  region_lse(pl, K, 0, k_below, f0, f1, mb, sb, tile, lane);
-  region_lse(pl, K, k_below, K - k_below, f0, f1, ma, sa, tile, lane);
-#pragma unroll
-  for (int c = 0; c < CPW; ++c) {
-    if (lane == c && c0 + c < C) {
-      out[static_cast<size_t>(l) * C + c0 + c] =
-          (mb[c] + logf(sb[c])) - (ma[c] + logf(sa[c]));
-    }
+    if (lane == c && c0 + c < C) out[static_cast<size_t>(l) * C + c0 + c] = score[c];
   }
 }
 

@@ -25,7 +25,7 @@ from timeit import default_timer as timer
 
 import numpy as np
 
-from . import progress
+from . import diagnostics, progress
 from .base import (
     JOB_STATE_DONE,
     JOB_STATE_ERROR,
@@ -53,7 +53,7 @@ def _not_ported(keyword, item):
 
 
 def _check_unported(max_speculation, validate_space, retry_policy, fault_stats,
-                    search_stats, trials_save_file):
+                    trials_save_file):
     if max_speculation:
         _not_ported("max_speculation>0", "queue A item 6, pipeline.py")
     if validate_space:
@@ -62,8 +62,6 @@ def _check_unported(max_speculation, validate_space, retry_policy, fault_stats,
         _not_ported("retry_policy", "queue A item 8, resilience/retry.py")
     if fault_stats is not None:
         _not_ported("fault_stats", "queue A item 8, DeviceRecovery and FaultStats")
-    if search_stats is not None:
-        _not_ported("search_stats", "queue A item 8, diagnostics.SearchStats")
     if str(trials_save_file).endswith(".orbax"):
         _not_ported("trials_save_file='*.orbax'", "queue A item 6, checkpoint.py")
 
@@ -146,7 +144,7 @@ class FMinIter:
         search_stats=None,
     ):
         _check_unported(max_speculation, False, retry_policy, fault_stats,
-                        search_stats, trials_save_file)
+                        trials_save_file)
         self.algo = algo
         self.domain = domain
         self.trials = trials
@@ -168,6 +166,14 @@ class FMinIter:
         self.early_stop_fn = early_stop_fn
         self.early_stop_args = []
         self.trials_save_file = trials_save_file
+        if search_stats is None:
+            # a partial-as-config algo (partial(tpe.suggest,
+            # n_startup_jobs=...)) declares its startup horizon in its
+            # keywords; other algos get the TPE default
+            n_startup = getattr(algo, "keywords", None) or {}
+            search_stats = diagnostics.SearchStats(
+                n_startup_jobs=int(n_startup.get("n_startup_jobs", 20)))
+        self.search_stats = search_stats
 
         if self.asynchronous and "FMinIter_Domain" not in trials.attachments:
             # out-of-process workers unpickle the domain from this attachment
@@ -271,6 +277,9 @@ class FMinIter:
                     self.trials.refresh()
                     seed = self.rstate.integers(2 ** 31 - 1)
                     new_trials = algo(new_ids, self.domain, trials, seed)
+                    # the suggest's search-health snapshot (None for
+                    # random/startup suggests), published on this thread
+                    self.search_stats.record_suggest(diagnostics.last_suggest_diag())
                     if new_trials is None:
                         stopped = True
                         break
@@ -295,6 +304,9 @@ class FMinIter:
                     self.serial_evaluate()
 
                 self.trials.refresh()
+                # this round's completions (OK losses, NaN included, and
+                # the error count) into the run's search health
+                self.search_stats.observe_trials(self.trials)
                 if self.trials_save_file != "":
                     _atomic_pickle_dump(
                         self.trials, self.trials_save_file, self.pickle_protocol
@@ -391,15 +403,21 @@ def fmin(
     deterministic: per-suggest seeds are drawn from it and seed the
     device generators.
 
+    ``search_stats``: a shared
+    :class:`~hyperopt_tpu_torch.diagnostics.SearchStats` to accumulate the
+    run's search health into (running best, regret curve, fault counts and
+    each TPE suggest's EI/Parzen snapshot); by default ``FMinIter`` owns a
+    private one, ``FMinIter.search_stats``.
+
     The loop is strictly serial: ``max_speculation`` may be None or 0.
     ``max_speculation>0``, ``validate_space=True``, ``retry_policy``,
-    ``fault_stats``, ``search_stats`` and a ``trials_save_file`` ending
-    in ``.orbax`` raise ``NotImplementedError`` (their subsystems are not
-    ported yet).  A plain ``trials_save_file`` is a pickle checkpoint the
-    next run resumes from.
+    ``fault_stats`` and a ``trials_save_file`` ending in ``.orbax`` raise
+    ``NotImplementedError`` (their subsystems are not ported yet).  A
+    plain ``trials_save_file`` is a pickle checkpoint the next run resumes
+    from.
     """
     _check_unported(max_speculation, validate_space, retry_policy, fault_stats,
-                    search_stats, trials_save_file)
+                    trials_save_file)
 
     if algo is None:
         from .algos import tpe
@@ -446,6 +464,7 @@ def fmin(
             trials_save_file=trials_save_file,
             points_to_evaluate=points_to_evaluate,
             max_speculation=max_speculation,
+            search_stats=search_stats,
         )
 
     if trials is None:
@@ -478,6 +497,7 @@ def fmin(
         show_progressbar=show_progressbar,
         early_stop_fn=early_stop_fn,
         trials_save_file=trials_save_file,
+        search_stats=search_stats,
     )
     rval.catch_eval_exceptions = catch_eval_exceptions
     rval.exhaust()

@@ -112,6 +112,53 @@ def erfinv_f32(x):
     return torch.where(x.abs() == 1, x * torch.finfo(x.dtype).max, p * x)
 
 
+def draw_param_rows(w, mu, sigma, low, high):
+    """The truncated-GMM draw's per-component table ``[L, 7, K]``:
+
+    ``cdf`` (cumsum of each component's in-bounds mass, the inverse-CDF
+    table), ``mu``, ``sigma``, ``erf(a/√2)``, ``erf(b/√2)`` (the
+    truncated-normal uniform bounds) and ``nextafter(a, +inf)``,
+    ``nextafter(b, −inf)`` (its clamp bounds), with ``a``/``b`` the
+    standardized bounds.  ``w``/``mu``/``sigma``: ``[L, K]``;
+    ``low``/``high``: ``[L]``.  Reference: ``draw_param_rows`` of
+    ``hyperopt_tpu/ops/pallas_fused.py``, with XLA's ``erf`` and its
+    ``x·(1/√2)`` folding."""
+    s = sigma.clamp(min=EPS)
+    a = ((low[:, None] - mu) / s).clamp(-30.0, 30.0)
+    b = ((high[:, None] - mu) / s).clamp(-30.0, 30.0)
+    Z = torch.special.ndtr(b) - torch.special.ndtr(a)
+    cdf = torch.cumsum((w * Z).clamp(min=0.0), dim=-1)
+    inf = torch.tensor(float("inf"), dtype=a.dtype, device=a.device)
+    return torch.stack([
+        cdf, mu, sigma, erf_f32(a * _INV_SQRT2), erf_f32(b * _INV_SQRT2),
+        torch.nextafter(a, inf), torch.nextafter(b, -inf),
+    ], dim=1)
+
+
+def draw_from_rows(u_comp, u_val, rows, log_scale: bool):
+    """Unquantized draws ``[L, n]`` from uniforms ``u_comp``/``u_val``
+    (``[L, n]``) and the table of :func:`draw_param_rows`: an inverse-CDF
+    component pick (``searchsorted(cdf, t, right=True)``, i.e. the count
+    of ``cdf ≤ t``), then ``√2·erfinv`` of a uniform between the erf
+    images of the bounds, clamped inside the open interval — the op chain
+    of ``jax.random.truncated_normal``.  The fused kernel
+    (``csrc/fused_suggest.cu``) repeats it term for term."""
+    cdf = rows[:, 0].contiguous()
+    total = cdf[:, -1:]
+    t = torch.minimum(u_comp * total, total * (1.0 - 1e-6))
+    comp = torch.searchsorted(cdf, t.contiguous(), right=True).clamp_(0, cdf.shape[1] - 1)
+
+    def pick(r):
+        return rows[:, r].gather(1, comp)
+
+    ea, eb = pick(3), pick(4)
+    u = torch.maximum(ea, _fma(u_val, eb - ea, ea))
+    t = _SQRT2 * erfinv_f32(u)
+    t = torch.minimum(torch.maximum(t, pick(5)), pick(6))
+    x = _fma(pick(2), t, pick(1))
+    return torch.exp(x) if log_scale else x
+
+
 def gmm_sample(u_comp, u_val, w, mu, sigma, low, high, q, log_scale: bool):
     """Draw ``n`` values per label from the truncated (log-)GMMs.
 
@@ -120,32 +167,16 @@ def gmm_sample(u_comp, u_val, w, mu, sigma, low, high, q, log_scale: bool):
     if ``log_scale``) truncation bounds, ±inf for unbounded; ``q <= 0``
     disables quantization.
 
-    Component selection is inverse-CDF (cumsum + searchsorted).
-    Zero-probability (padding) components occupy zero-width CDF intervals,
-    which ``right=True`` search never selects.  The truncated normal is
-    the inverse-CDF transform ``√2·erfinv(u)`` of a uniform between the
-    erf images of the bounds, clamped inside the open interval — the op
-    chain of ``jax.random.truncated_normal``, so streams injected from
-    JAX give the same values to within float rounding.
+    Component selection is inverse-CDF over the components' in-bounds
+    mass.  Zero-probability (padding) components occupy zero-width CDF
+    intervals, which ``right=True`` search never selects.  The truncated
+    normal is the inverse-CDF transform ``√2·erfinv(u)`` of a uniform
+    between the erf images of the bounds, clamped inside the open
+    interval — the op chain of ``jax.random.truncated_normal``, so streams
+    injected from JAX give the same values to within float rounding
+    (:func:`draw_param_rows`, :func:`draw_from_rows`).
     """
-    s = sigma.clamp(min=EPS)
-    a = ((low[:, None] - mu) / s).clamp(-30.0, 30.0)
-    b = ((high[:, None] - mu) / s).clamp(-30.0, 30.0)
-    Z = torch.special.ndtr(b) - torch.special.ndtr(a)
-    p = (w * Z).clamp(min=0.0)
-    comp = inverse_cdf(p, u_comp)
-    a_c, b_c = a.gather(1, comp), b.gather(1, comp)
-    ea = erf_f32(a_c * _INV_SQRT2)
-    eb = erf_f32(b_c * _INV_SQRT2)
-    u = torch.maximum(ea, _fma(u_val, eb - ea, ea))
-    t = _SQRT2 * erfinv_f32(u)
-    inf = torch.tensor(float("inf"), dtype=t.dtype, device=t.device)
-    t = torch.minimum(
-        torch.maximum(t, torch.nextafter(a_c, inf)), torch.nextafter(b_c, -inf)
-    )
-    x = _fma(sigma.gather(1, comp), t, mu.gather(1, comp))
-    if log_scale:
-        x = torch.exp(x)
+    x = draw_from_rows(u_comp, u_val, draw_param_rows(w, mu, sigma, low, high), log_scale)
     qq = q[:, None]
     return torch.where(qq > 0, torch.round(x / qq.clamp(min=EPS)) * qq, x)
 

@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` has a plain ``extern "C"`` interface and is
 compiled by ``nvcc`` for ``sm_90a`` into its own shared library, loaded
 with ``ctypes`` (no PyTorch headers: that build takes seconds, not
 minutes).  Libraries go to ``build/kernels/`` at the root of the checkout,
-named by a hash of their source so an edited kernel is rebuilt; they are
+named by a hash of their source and of the shared headers (``*.cuh``)
+so an edited kernel or header is rebuilt; they are
 built at first use, or all at once, in parallel, by :func:`build`.
 Nothing here runs when the module is imported.
 """
@@ -41,9 +42,14 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """Where kernel ``name``'s library goes: named by a hash of its source,
+    every shared header in ``csrc/`` and the flags, so an edit to any of
+    them builds a new library."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names) -> dict:

@@ -1,4 +1,4 @@
-"""The batched pair-score kernel: ``csrc/pair_score.cu`` bound with ctypes.
+"""The pair-score kernel: ``csrc/pair_score.cu`` bound with ctypes.
 
 Replaces ``hyperopt_tpu/ops/pallas_gmm.py``'s ``_kernel_batched`` (the
 TPU kernel launched by ``_pair_score_pallas_batched``): for each label l
@@ -7,9 +7,11 @@ and candidate z, ``LSE_{j<Kb}(F·P[:,j]) − LSE_{j≥Kb}(F·P[:,j])`` with
 source says what bounds the kernel on the card and what its design does
 about it.
 
-:func:`pair_score_batched` launches the kernel for CUDA tensors and runs
-the plain version (``ops.score.pair_score``) for CPU tensors; nothing
-else selects between them.
+:func:`pair_score_batched` (``[L, C]``) and :func:`pair_score_single`
+(``[C]``, the counterpart of ``pallas_gmm.py``'s single-label ``_kernel``)
+launch the kernel for CUDA tensors and run the plain version
+(``ops.score.pair_score``) for CPU tensors; nothing else selects between
+them.
 """
 
 from __future__ import annotations
@@ -56,6 +58,22 @@ def _check(z, params, k_below):
         raise ValueError(f"shape L={L}, C={C}, K={K} is beyond the kernel's int indexing")
 
 
+def _launch(z, params, k_below):
+    """Scores ``[L, C]`` from the kernel on the current stream (no
+    synchronise; a refused launch raises).  Inputs already checked."""
+    L, C = z.shape
+    out = torch.empty_like(z)
+    if C == 0:
+        return out
+    with torch.cuda.device(z.device):
+        stream = torch.cuda.current_stream(z.device).cuda_stream
+        err = _lib()(z.data_ptr(), params.data_ptr(), out.data_ptr(),
+                     L, C, params.shape[2], k_below, stream)
+    if err != 0:
+        raise RuntimeError(f"pair_score kernel launch failed: CUDA error {err}")
+    return out
+
+
 def pair_score_batched(z, params, k_below: int):
     """Scores ``[L, C]`` for candidates ``z`` ([L, C], f32) against
     ``params`` ([L, 3, Kb+Ka], f32, from ``ops.score.pair_params``) with
@@ -68,18 +86,36 @@ def pair_score_batched(z, params, k_below: int):
     _check(z, params, k_below)
     if effective_scorer(z) == "plain":
         return pair_score(z, params, k_below)
-    L, C = z.shape
-    out = torch.empty_like(z)
-    if C == 0:
-        return out
-    with torch.cuda.device(z.device):
-        stream = torch.cuda.current_stream(z.device).cuda_stream
-        err = _lib()(z.data_ptr(), params.data_ptr(), out.data_ptr(),
-                     L, C, params.shape[2], k_below, stream)
-    if err != 0:
-        raise RuntimeError(f"pair_score kernel launch failed: CUDA error {err}")
+    out = _launch(z, params, k_below)
     pair_score_batched.launches += 1
     return out
 
 
 pair_score_batched.launches = 0
+
+
+def pair_score_single(z, params, k_below: int):
+    """Scores ``[C]`` of one label: candidates ``z`` ([C], f32) against
+    ``params`` ([3, Kb+Ka], f32).
+
+    The counterpart of ``hyperopt_tpu/ops/pallas_gmm.py``'s
+    ``pair_score_pallas`` (its TPU kernel ``_kernel``): the same arithmetic
+    as the batched kernel, so it is the L=1 launch of that kernel, with
+    its own count, ``pair_score_single.launches``.  A CPU tensor runs the
+    plain version."""
+    k_below = int(k_below)
+    if not isinstance(z, torch.Tensor) or not isinstance(params, torch.Tensor):
+        raise TypeError("z and params must be torch tensors")
+    if z.dim() != 1 or params.dim() != 2:
+        raise ValueError(f"need z [C] and params [3, K], got {tuple(z.shape)} "
+                         f"and {tuple(params.shape)}")
+    z2, p3 = z[None], params[None]
+    _check(z2, p3, k_below)
+    if effective_scorer(z) == "plain":
+        return pair_score(z2, p3, k_below)[0]
+    out = _launch(z2, p3, k_below)
+    pair_score_single.launches += 1
+    return out[0]
+
+
+pair_score_single.launches = 0

@@ -23,9 +23,23 @@ materialized), and the hand-written CUDA kernel behind
 :func:`hyperopt_tpu_torch.ops.pair_kernel.pair_score_batched`, which never
 materializes it.  :func:`effective_scorer` picks between them by where the
 tensors lie.
+
+Scorer tiers (:func:`resolve_scorer`, the reference's names and
+``HYPEROPT_TPU_SCORER`` values):
+
+- ``pallas``: the pair-score kernel (``pair_score_batched``), the default;
+- ``xla``: the plain :func:`pair_score`, on whatever device the tensors
+  lie;
+- ``fused``: the fused suggest kernel (``ops.fused_kernel``): score,
+  winner and EI partials in one launch;
+- ``exact``: the normalized ``gmm_lpdf`` difference.
+
+Every tier's kernel wrapper runs its plain version for CPU tensors.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -66,6 +80,36 @@ def effective_scorer(z) -> str:
 
     No size crossover: the card's has not been measured yet."""
     return "kernel" if z.is_cuda else "plain"
+
+
+SCORERS = ("pallas", "xla", "fused", "exact")
+
+
+def env_bool(name: str):
+    """Tri-state env flag: True/False when set (``1/true/yes/on`` are
+    true), None when unset."""
+    v = os.environ.get(name)
+    if v is None:
+        return None
+    return v.strip().lower() in ("1", "true", "yes", "on")
+
+
+def resolve_scorer() -> str:
+    """The scorer tier of one suggest.
+
+    ``HYPEROPT_TPU_SCORER`` (one of :data:`SCORERS`) is honoured verbatim.
+    Without it the tier is ``fused`` when
+    :func:`~hyperopt_tpu_torch.ops.fused_kernel.resolve_fused` says so,
+    else ``pallas``.  No TPU size crossover or probe verdict carries over:
+    the card's have not been measured."""
+    forced = os.environ.get("HYPEROPT_TPU_SCORER")
+    if forced:
+        if forced not in SCORERS:
+            raise ValueError(f"HYPEROPT_TPU_SCORER={forced!r}: expected one of {SCORERS}")
+        return forced
+    from .fused_kernel import resolve_fused  # imports this module
+
+    return "fused" if resolve_fused() else "pallas"
 
 
 def _logsumexp_rows(comp):

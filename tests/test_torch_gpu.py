@@ -79,3 +79,80 @@ def test_suggest_runs_on_card(cuda):
            trials=trials, rstate=np.random.default_rng(0), show_progressbar=False)
     assert len(trials.trials) == 15
     assert all(-5 <= d["misc"]["vals"]["x"][0] <= 5 for d in trials.trials)
+
+
+def fused_case(L, k, n_cand, kb, ka, seed, log_scale=False):
+    """The fused kernel's inputs on the card: mixtures as ``case`` makes
+    them, bounded to [-3, 3], uniforms from a seeded generator."""
+    from hyperopt_tpu_torch.ops.gmm import draw_param_rows, gmm_sample
+
+    g = torch.Generator().manual_seed(seed)
+
+    def mixture(K):
+        w = torch.rand(L, K, generator=g) + 0.05
+        w = w / w.sum(dim=1, keepdim=True)
+        return w, torch.randn(L, K, generator=g), torch.rand(L, K, generator=g) + 0.3
+
+    B = [a.cuda() for a in mixture(kb)]
+    A = [a.cuda() for a in mixture(ka)]
+    lo, hi = torch.full((L,), -3.0, device="cuda"), torch.full((L,), 3.0, device="cuda")
+    u = torch.rand((2, L, k * n_cand), generator=g).cuda()
+    cands = gmm_sample(u[0], u[1], *B, lo, hi, torch.zeros(L, device="cuda"), log_scale)
+    return (u[0].contiguous(), u[1].contiguous(), draw_param_rows(*B, lo, hi).contiguous(),
+            cands.contiguous(), pair_params(*B, *A).contiguous())
+
+
+@pytest.mark.parametrize("shape", [
+    dict(L=2, k=1, n_cand=8192, kb=33, ka=16385),  # the main path at 10k history
+    dict(L=3, k=4, n_cand=100, kb=9, ka=300, log_scale=True),
+])
+@pytest.mark.parametrize("draw", [False, True])
+def test_fused_kernel_on_card(cuda, shape, draw):
+    """The fused kernel's winners equal the pair-score kernel + argmax on
+    its candidates bit for bit; its EI partials agree with its plain
+    version within the pair-score tolerance; its in-kernel draw equals
+    gmm_sample's to 2 ulp."""
+    from hyperopt_tpu_torch.ops.fused_kernel import fused_suggest, fused_suggest_plain
+
+    L, k, n, kb = shape["L"], shape["k"], shape["n_cand"], shape["kb"]
+    ls = shape.get("log_scale", False)
+    u1, u2, rows, cands, params = fused_case(seed=1, **shape)
+    args = (u1, u2, rows) if draw else (cands, None, None)
+    before = fused_suggest.launches
+    win, idx, seg_m, seg_s, seg_top = fused_suggest(*args, params, kb, k, log_scale=ls,
+                                                    draw_in_kernel=draw)
+    x = cands
+    if draw:  # every drawn candidate: k * n segments of one candidate each
+        x = fused_suggest(u1, u2, rows, params, kb, k * n, n_top=1, log_scale=ls,
+                          draw_in_kernel=True)[0]
+        ulp = (x.view(torch.int32).long() - cands.view(torch.int32).long()).abs()
+        assert int(ulp.max()) <= 2 and float((ulp == 0).double().mean()) >= 0.99
+    torch.cuda.synchronize()
+    assert fused_suggest.launches == before + 1 + draw
+    z = torch.log(x.clamp(min=1e-12)) if ls else x
+    s = pair_score_batched(z.contiguous(), params, kb).reshape(L, k, n)
+    ref_idx = torch.argmax(s, dim=2)
+    ref_win = x.reshape(L, k, n).gather(2, ref_idx[:, :, None])[:, :, 0]
+    assert torch.equal(idx.long(), ref_idx)
+    assert torch.equal(win.view(torch.int32), ref_win.view(torch.int32))
+    plain = fused_suggest_plain(*args, params, kb, k, log_scale=ls, draw_in_kernel=draw)
+    ref = pair_score(z, params, kb)
+    plain_err = float((ref.double() - pair_score(z.double(), params.double(), kb)).abs().max())
+    allow = 1e-4 + 1e-5 * float(ref.abs().max()) + 2 * plain_err
+    assert float((seg_m - plain[2]).abs().max()) <= allow
+    assert float((seg_top - plain[4]).abs().max()) <= allow
+    assert float((seg_s.log() - plain[3].log()).abs().max()) <= 2 * allow
+
+
+def test_pair_score_single_on_card(cuda):
+    from hyperopt_tpu_torch.ops.pair_kernel import pair_score_single
+
+    z, params = case(L=1, C=8192, kb=33, ka=16385, seed=2, real_a=10001)
+    z, params = z.to(cuda), params.to(cuda)
+    before = (pair_score_single.launches, pair_score_batched.launches)
+    got = pair_score_single(z[0].contiguous(), params[0].contiguous(), 33)
+    torch.cuda.synchronize()
+    assert (pair_score_single.launches, pair_score_batched.launches) == (before[0] + 1,
+                                                                         before[1])
+    assert_close_to_plain(got[None], pair_score(z, params, 33),
+                          pair_score(z.double(), params.double(), 33))

@@ -321,8 +321,7 @@ def test_fmin_resumes_from_pickle(tmp_path):
 
 @pytest.mark.parametrize("kwargs", [
     {"max_speculation": 1}, {"validate_space": True}, {"retry_policy": object()},
-    {"fault_stats": object()}, {"search_stats": object()},
-    {"trials_save_file": "run.orbax"},
+    {"fault_stats": object()}, {"trials_save_file": "run.orbax"},
 ])
 def test_unported_keywords_raise(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
