@@ -36,7 +36,12 @@ non-zero without the final line):
 11. ``quickstart``: the README quick-start space (index families,
     startup then TPE) for 40 evals.
 12. ``timing``: each kernel, its plain version and one PyTorch library call
-    computing the same function, by CUDA events at the main-path shape.
+    computing the same function, by CUDA events at the main-path shape;
+    the kernel's device ms per launch (``torch.profiler``); its bound, the
+    larger of the f32 operations at the f32 peak, the issue slots and SFU
+    time with the exps split at best between the SFU and the FMA pipe, and
+    the bytes at the memory rate, and its share of that bound; beside it
+    the SFU-only time and its share.
 
 Then the ``kernels`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of
@@ -86,8 +91,24 @@ def allowance(ref, ref64):
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 # operations per (candidate, component) cell: 2 FMA (4 flops) for the
-# quadratic, then subtract, exp, multiply-add/add of the online logsumexp
+# quadratic, then subtract, scale, exp and add of the logsumexp
 OPS_PER_CELL = 8
+# the exp of every cell on the SFU: MUFU.EX2 returns 16 results per SM per
+# clock on sm_90 (CUDA C++ Programming Guide, arithmetic instruction
+# throughput), at the card's top SM clock (nvidia-smi clocks.max.sm)
+EX2_PER_SM_CLOCK = 16
+# The schedulers issue 4 warp instructions per SM per clock (128 lanes).
+# Besides its exp, a cell needs 6 issue slots under the precision contract
+# (ROADMAP "Precision": d = c - m rounded in natural-log units, then scaled):
+# 2 FFMA for the quadratic, FMNMX toward the max, FADD c - m, FMUL by
+# log2 e, FADD into the sum.  An exp costs 1 slot and 8 lane-clocks of the
+# SFU, or POLY_EXP_SLOTS slots on the FMA pipe as an f32 polynomial:
+# clamp, round by 1.5 * 2^23 (2 FADD), the fraction (FADD), 5 FFMA of a
+# degree-5 fit of 2^f on [-1/2, 1/2] (2.3e-7 relative, as ex2.approx's
+# 2 ulp), one integer add of the exponent.
+LANE_SLOTS_PER_SM_CLOCK = 128
+SLOTS_PER_CELL = 6
+POLY_EXP_SLOTS = 10
 
 
 def emit(phase, **fields):
@@ -206,16 +227,24 @@ def ptxas_summary(log):
             "spill_bytes": sum(spills)}
 
 
-def phase_card():
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+def nvidia_smi(query, *fmt):
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=" + ",".join(("csv", "noheader", *fmt))],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
+
+
+def phase_card():
+    """The card's name and power limit, and its SM count and top SM clock
+    (MHz) for the SFU bound."""
+    smi = nvidia_smi("name,power.limit")
+    card = {"sms": torch.cuda.get_device_properties(0).multi_processor_count,
+            "max_sm_mhz": float(nvidia_smi("clocks.max.sm", "nounits"))}
     emit("card", nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
          python=sys.version.split()[0], kind=torch.cuda.get_device_name(0),
-         count=torch.cuda.device_count(),
+         count=torch.cuda.device_count(), **card,
          allow_tf32=torch.backends.cuda.matmul.allow_tf32)
-    return smi
+    return smi, card
 
 
 def phase_build():
@@ -232,7 +261,7 @@ def phase_build():
 
 
 def phase_kernel_vs_plain():
-    from hyperopt_tpu_torch.ops.pair_kernel import pair_score_batched
+    from hyperopt_tpu_torch.ops.pair_kernel import pair_score_batched, pair_score_single
     from hyperopt_tpu_torch.ops.score import pair_score
 
     main_err = None
@@ -255,6 +284,12 @@ def phase_kernel_vs_plain():
         }
         if name == "main":
             main_err = row["max_abs_err"]
+            # the single-label launch (another candidates-per-warp instance)
+            # gives row 0's bits
+            one = pair_score_single(z[0].contiguous(), params[0].contiguous(), shape["kb"])
+            row["single_launch_row0_bitwise"] = bool(torch.equal(one.view(torch.int32),
+                                                                 got[0].view(torch.int32)))
+            row["ok"] = row["ok"] and row["single_launch_row0_bitwise"]
         emit("kernel_vs_plain", shape=name, **shape, **row, tolerance=TOLERANCE)
         assert row["ok"], (name, row)
     return main_err
@@ -351,9 +386,10 @@ def argmax_reference(x, inp):
     return win, idx, s
 
 
-def check_fused(name, inp, draw):
+def check_fused(name, inp, draw, n_top=16):
     """One shape and draw mode: bitwise winners against the pair-score
-    kernel's argmax, and the EI partials against the plain version."""
+    kernel's argmax, and the EI partials (top ``n_top``) against the plain
+    version."""
     from hyperopt_tpu_torch.ops.fused_kernel import (
         ei_from_partials,
         fused_suggest,
@@ -363,8 +399,8 @@ def check_fused(name, inp, draw):
 
     kb, k, n_cand, ls = inp["kb"], inp["k"], inp["n_cand"], inp["log_scale"]
     args = ((inp["u1"], inp["u2"], inp["rows"]) if draw else (inp["cands"], None, None))
-    got = fused_suggest(*args, inp["params"], kb, k, log_scale=ls, draw_in_kernel=draw)
-    plain = fused_suggest_plain(*args, inp["params"], kb, k, log_scale=ls,
+    got = fused_suggest(*args, inp["params"], kb, k, n_top, log_scale=ls, draw_in_kernel=draw)
+    plain = fused_suggest_plain(*args, inp["params"], kb, k, n_top, log_scale=ls,
                                 draw_in_kernel=draw)
     row = {}
     x = inp["cands"]
@@ -390,7 +426,7 @@ def check_fused(name, inp, draw):
         same = (a == b)  # equal infinities
         return float(torch.where(same, 0.0, (a - b).abs()).max())
 
-    C, n_top = k * n_cand, min(16, k * n_cand)
+    C, n_top = k * n_cand, min(n_top, k * n_cand)
     ei_got = ei_from_partials(*got[2:], C, n_top)
     ei_ref = ei_from_partials(*plain[2:], C, n_top)
     errs = {
@@ -407,7 +443,8 @@ def check_fused(name, inp, draw):
     if draw:
         ok = ok and row["draw_bit_equal_share"] >= 0.99 and row["draw_max_ulp"] <= 2
     emit("fused_vs_plain", shape=name, draw_in_kernel=draw, kb=kb,
-         ka=inp["params"].shape[2] - kb, k=k, n_cand=n_cand, log_scale=ls, ok=ok, **row,
+         ka=inp["params"].shape[2] - kb, k=k, n_cand=n_cand, n_top=n_top, log_scale=ls, ok=ok,
+         **row,
          tolerance=FUSED_TOLERANCE)
     assert ok, (name, draw, row)
     return errs
@@ -423,6 +460,10 @@ def phase_fused_vs_plain():
             errs = check_fused(name, inp, draw)
             if name == "main" and not draw:
                 main_err = max(errs.values())
+    # n_top = 128 at L=1: the largest top set the merge kernel ranks (the
+    # tiles' partials are 67 KB a segment)
+    check_fused("main_l1_top128", fused_inputs(*FUSED_SHAPES[0][1:], seed=98, L=1), False,
+                n_top=128)
     # ties: equal scores keep the first index, within a tile and across tiles
     inp = fused_inputs(*FUSED_SHAPES[0][1:], seed=99, L=1)
     _, idx, _ = argmax_reference(inp["cands"], inp)
@@ -714,15 +755,61 @@ def bench_like_quickstart_objective(c):
     return (np.log(c["lr"]) + 7.0) ** 2 + c["layers"] + c["arch"].get("width", 0) / 1024.0
 
 
-def bound(cells, n_bytes):
-    ops_ms = OPS_PER_CELL * cells / PEAK_F32_FLOPS * 1e3
-    bytes_ms = n_bytes / PEAK_BYTES * 1e3
-    return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
+def exp_split():
+    """The share of exps on the FMA pipe that balances the issue slots
+    against the SFU, and the lane-clocks per cell there: issue slots
+    SLOTS_PER_CELL + (1 - f) + f * POLY_EXP_SLOTS against SFU lane-clocks
+    R * (1 - f), R = LANE_SLOTS_PER_SM_CLOCK / EX2_PER_SM_CLOCK."""
+    r = LANE_SLOTS_PER_SM_CLOCK / EX2_PER_SM_CLOCK
+    f = max(0.0, (r - SLOTS_PER_CELL - 1) / (r + POLY_EXP_SLOTS - 1))
+    return f, max(SLOTS_PER_CELL + 1 - f + f * POLY_EXP_SLOTS, r * (1 - f))
 
 
-def phase_timing(errs, launches):
+def bound(cells, n_bytes, card):
+    """The least time for ``cells`` score cells and ``n_bytes`` of input and
+    output: the larger of the f32 operations at the f32 peak, the issue
+    slots and SFU time with the exps split at best between the SFU and the
+    FMA pipe (``exp_split``), and the bytes at the memory rate.  Beside it,
+    the SFU-only time (every exp on MUFU.EX2), which assumes no exp on the
+    FMA pipe and so is no floor."""
+    sm_hz = card["sms"] * card["max_sm_mhz"] * 1e6
+    f, lane_clocks = exp_split()
+    b = {"f32_bound_ms": OPS_PER_CELL * cells / PEAK_F32_FLOPS * 1e3,
+         "issue_sfu_bound_ms": cells * lane_clocks / (LANE_SLOTS_PER_SM_CLOCK * sm_hz) * 1e3,
+         "bytes_bound_ms": n_bytes / PEAK_BYTES * 1e3}
+    unit = max(b, key=b.get)
+    return {"bound_ms": b[unit], "bound_by": "bytes" if unit == "bytes_bound_ms" else "operations",
+            "bound_unit": {"f32_bound_ms": "f32",
+                           "issue_sfu_bound_ms": f"issue slots and SFU, {f:.4f} of exps on FMA",
+                           "bytes_bound_ms": "bytes"}[unit],
+            "sfu_bound_ms": cells / (EX2_PER_SM_CLOCK * sm_hz) * 1e3, **b}
+
+
+def device_ms_per_launch(fn, names, iters=50):
+    """Device time per call of ``fn`` of the kernels whose names hold one of
+    ``names``, by ``torch.profiler``: the kernels alone, without the
+    wrapper's host work that the event timing of ``cuda_ms`` also spans.
+    Returns the total and ``{name: ms}``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    by = {}
+    for a in prof.key_averages():
+        for n in names:
+            if n in a.key:
+                by[n] = by.get(n, 0.0) + getattr(a, "self_device_time_total", 0.0) / 1e3 / iters
+    return (sum(by.values()), by) if by else ("not measured", {})
+
+
+def phase_timing(errs, launches, card):
     """Each kernel, its plain version and a library yardstick at the main
-    path's shapes, by CUDA events.  The library calls are timed as
+    path's shapes: event ms per call (``cuda_ms``), the kernel's profiler
+    device ms per launch, and its bound.  The library calls are timed as
     yardsticks only; the port never calls them."""
     from hyperopt_tpu_torch.algos.tpe_device import _ei_diag
     from hyperopt_tpu_torch.ops.fused_kernel import fused_suggest, fused_suggest_plain
@@ -735,22 +822,28 @@ def phase_timing(errs, launches):
         comp = torch.matmul(feats, params)
         return torch.logsumexp(comp[..., :kb], -1) - torch.logsumexp(comp[..., kb:], -1)
 
+    def row(name, fn, names, cells, n_bytes, **fields):
+        device_ms, by_kernel = device_ms_per_launch(fn, names)
+        r = {"name": name, "route": "cuda", **fields, "ms": cuda_ms(fn, iters=200),
+             "device_ms": device_ms, "device_ms_by_kernel": by_kernel,
+             **bound(cells, n_bytes, card), "cells": cells, "ops_per_cell": OPS_PER_CELL,
+             "exps_per_cell": 1}
+        r["share_of_bound"] = r["bound_ms"] / r["ms"]
+        r["share_of_sfu_bound"] = r["sfu_bound_ms"] / r["ms"]
+        return r
+
     rows = []
     s = MAIN_SHAPE
     z, params = pair_case(seed=4, **s)
     L, C, K, kb = s["L"], s["C"], s["kb"] + s["ka"], s["kb"]
-    ms = cuda_ms(lambda: pair_score_batched(z, params, kb), iters=200)
-    b_ms, b_by = bound(L * C * K, 4 * (2 * L * C + 3 * L * K))
-    rows.append({
-        "name": "pair_score_batched", "route": "cuda",
-        "source": "hyperopt_tpu_torch/csrc/pair_score.cu",
-        "replaces": "hyperopt_tpu/ops/pallas_gmm.py:127",
-        "launches": launches["pair_score_batched"], "max_abs_err": errs["pair_score_batched"],
-        "ms": ms, "kernel_ms": ms, "plain_ms": cuda_ms(lambda: pair_score(z, params, kb), 10),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": cuda_ms(lambda: library_scores(z, params, kb), 10),
-        "cells": L * C * K, "ops_per_cell": OPS_PER_CELL,
-    })
+    rows.append(row(
+        "pair_score_batched", lambda: pair_score_batched(z, params, kb), ["pair_score_kernel"],
+        L * C * K, 4 * (2 * L * C + 3 * L * K),
+        source="hyperopt_tpu_torch/csrc/pair_score.cu",
+        replaces="hyperopt_tpu/ops/pallas_gmm.py:127",
+        launches=launches["pair_score_batched"], max_abs_err=errs["pair_score_batched"],
+        plain_ms=cuda_ms(lambda: pair_score(z, params, kb), 10),
+        library_ms=cuda_ms(lambda: library_scores(z, params, kb), 10)))
 
     # the fused kernel on the main path's family shape, both draw modes
     inp = fused_inputs(*FUSED_SHAPES[0][1:], seed=4)
@@ -767,44 +860,41 @@ def phase_timing(errs, launches):
         torch.argmax(sc, dim=1)
         torch.topk(sc, n_top, dim=1)
 
-    ms = cuda_ms(lambda: fused_suggest(x, None, None, p, kb, 1), iters=200)
-    ms_draw = cuda_ms(lambda: fused_suggest(inp["u1"], inp["u2"], inp["rows"], p, kb, 1,
-                                            draw_in_kernel=True), iters=200)
-    b_ms, b_by = bound(L * C * K, 4 * (L * C + 3 * L * K + L * (4 + n_top)))
-    rows.append({
-        "name": "fused_suggest", "route": "cuda",
-        "source": "hyperopt_tpu_torch/csrc/fused_suggest.cu",
-        "replaces": "hyperopt_tpu/ops/pallas_fused.py:126",
-        "launches": launches["fused_suggest"], "launches_draw": launches["fused_suggest_draw"],
-        "max_abs_err": errs["fused_suggest"], "ms": ms, "kernel_ms": ms, "ms_draw": ms_draw,
-        "plain_ms": cuda_ms(lambda: fused_suggest_plain(x, None, None, p, kb, 1), 10),
-        "unfused_ms": cuda_ms(unfused, 100), "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": cuda_ms(library, 10), "cells": L * C * K,
-        "ops_per_cell": OPS_PER_CELL,
-    })
+    def draw():
+        fused_suggest(inp["u1"], inp["u2"], inp["rows"], p, kb, 1, draw_in_kernel=True)
+
+    fused_names = ["fused_tile_kernel", "fused_merge_kernel"]
+    rows.append(row(
+        "fused_suggest", lambda: fused_suggest(x, None, None, p, kb, 1), fused_names,
+        L * C * K, 4 * (L * C + 3 * L * K + L * (4 + n_top)),
+        source="hyperopt_tpu_torch/csrc/fused_suggest.cu",
+        replaces="hyperopt_tpu/ops/pallas_fused.py:126",
+        launches=launches["fused_suggest"], launches_draw=launches["fused_suggest_draw"],
+        max_abs_err=errs["fused_suggest"], ms_draw=cuda_ms(draw, iters=200),
+        device_ms_draw=device_ms_per_launch(draw, fused_names)[0],
+        plain_ms=cuda_ms(lambda: fused_suggest_plain(x, None, None, p, kb, 1), 10),
+        unfused_ms=cuda_ms(unfused, 100), library_ms=cuda_ms(library, 10)))
 
     # the single-label launch at the main path's widths, L = 1
     s1 = dict(MAIN_SHAPE, L=1)
     z, params = pair_case(seed=5, **s1)
     C, K, kb = s1["C"], s1["kb"] + s1["ka"], s1["kb"]
     z1, p1 = z[0].contiguous(), params[0].contiguous()
-    ms = cuda_ms(lambda: pair_score_single(z1, p1, kb), iters=200)
-    b_ms, b_by = bound(C * K, 4 * (2 * C + 3 * K))
-    rows.append({
-        "name": "pair_score_single", "route": "cuda",
-        "source": "hyperopt_tpu_torch/csrc/pair_score.cu (L=1 launch)",
-        "replaces": "hyperopt_tpu/ops/pallas_gmm.py:119",
-        "launches": launches["pair_score_single"], "max_abs_err": errs["pair_score_single"],
-        "ms": ms, "kernel_ms": ms, "plain_ms": cuda_ms(lambda: pair_score(z, params, kb), 10),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": cuda_ms(lambda: library_scores(z, params, kb), 10),
-        "cells": C * K, "ops_per_cell": OPS_PER_CELL,
-    })
+    rows.append(row(
+        "pair_score_single", lambda: pair_score_single(z1, p1, kb), ["pair_score_kernel"],
+        C * K, 4 * (2 * C + 3 * K),
+        source="hyperopt_tpu_torch/csrc/pair_score.cu (L=1 launch)",
+        replaces="hyperopt_tpu/ops/pallas_gmm.py:119",
+        launches=launches["pair_score_single"], max_abs_err=errs["pair_score_single"],
+        plain_ms=cuda_ms(lambda: pair_score(z, params, kb), 10),
+        library_ms=cuda_ms(lambda: library_scores(z, params, kb), 10)))
     for r in rows:
         emit("timing", kernel=r["name"], **{k: r[k] for k in (
-            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by") if k in r},
-            **({"unfused_ms": r["unfused_ms"], "ms_draw": r["ms_draw"]}
-               if "unfused_ms" in r else {}))
+            "ms", "device_ms", "device_ms_by_kernel", "ms_draw", "device_ms_draw", "plain_ms",
+            "unfused_ms",
+            "library_ms", "bound_ms", "bound_by", "bound_unit", "f32_bound_ms",
+            "issue_sfu_bound_ms", "sfu_bound_ms", "share_of_bound", "share_of_sfu_bound")
+            if k in r})
     return rows
 
 
@@ -843,7 +933,7 @@ def main():
     assert "jax" not in sys.modules and not any(
         m == "hyperopt_tpu" or m.startswith("hyperopt_tpu.") for m in sys.modules)
     counters = [pair_score_batched, fused_suggest, pair_score_single]
-    smi = phase_card()
+    smi, card = phase_card()
     phase_build()
     errs = {"pair_score_batched": phase_kernel_vs_plain(),
             "fused_suggest": phase_fused_vs_plain(),
@@ -860,7 +950,7 @@ def main():
     launches = {**launches, "fused_suggest": fused_runs["0"][0]["fused_suggest"],
                 "fused_suggest_draw": fused_runs["1"][0]["fused_suggest"],
                 "pair_score_single": single["pair_score_single"]}
-    kernels = phase_timing(errs, launches)
+    kernels = phase_timing(errs, launches, card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -14,24 +14,31 @@
 //   - the EI partials over the sanitized scores (NaN -> -1e30, clamped to
 //     +-1e30): max m, sum of exp(score - m), and the top n_top scores.
 //
-// What bounds it: operations, as pair_score.cu.  The score stage does the
-// same L*C*K cells of ~8 operations (2.69e8 at the main-path shape), and
-// the draw, winner and partials add O(L*C*(Kb + TC)) cheap operations.
-// Bytes: the inputs once (O(L*(C + K))) and O(L*k*(n_top + 4)) outputs.
+// What bounds it: the SFU, as pair_score.cu.  The score stage does the
+// same L*C*K cells with one exp each (2.69e8 at the main-path shape: 0.064
+// ms of MUFU.EX2 at 16 per SM per clock, 1.98 GHz, 132 SMs, against 0.032
+// ms for their f32 operations); the draw, winner and partials add
+// O(L*C*(Kb + TC)) cheap operations.  Bytes: the inputs once
+// (O(L*(C + K))) and O(L*k*(n_top + 4)) outputs.
 //
 // What the design does about it:
-// - the score stage is pair_score.cu's loop (8 warps x 8 candidates in
-//   registers, components over the 32 lanes), so it costs what B1 costs;
-// - the candidates, scores and partial reductions stay in shared memory:
-//   only the winner and the partials leave the block;
+// - the score stage is pair_score.cu's loop (pair_lse.cuh: 7.7 issue slots
+//   and 1.125 exps per cell, the label's P resident in shared memory), so
+//   it costs what B1 costs, and the launch picks the candidates per warp
+//   (CPW) as B1's does;
+// - P's copies start before the candidates are loaded or drawn, and the
+//   candidates, scores and partial reductions stay in shared memory: only
+//   the winner and the partials leave the block;
 // - the TPU grid (L, k, tiles) carries one accumulator across candidate
 //   tiles in order.  Blocks here run in no order, so each block writes its
 //   tile's partials (winner, (m, s), top n_top) to scratch, and a second
-//   small kernel in this file merges each (l, j)'s tiles: the winner by
-//   strict > in tile order, (m, s) by the max-rebased merge, the top set by
-//   n_top rounds of a block argmax.  No float atomics: every run gives the
-//   same bits.  A tile never holds two segments, and padding lanes of the
-//   last tile count as -inf for the winner and add no mass.
+//   kernel in this file merges each (l, j)'s tiles in one block: the
+//   winner by strict > in tile order, (m, s) by the max-rebased merge, and
+//   the top set without rounds -- each candidate entry's rank counted in
+//   parallel by binary searches of the tiles' sorted sets.  No float
+//   atomics: every run gives the same bits.  A tile never holds two
+//   segments, and padding lanes of the last tile count as -inf for the
+//   winner and add no mass.
 //
 // Plain C interface for ctypes: the launch function returns the
 // cudaError_t of cudaGetLastError() after both launches.  It launches on
@@ -53,6 +60,7 @@ constexpr float SAN = 1e30f;                                      // score sanit
 constexpr float CDF_TOP = static_cast<float>(1.0 - 1e-6);         // ops/dists.py inverse_cdf
 constexpr float SQRT2 = static_cast<float>(1.4142135623730951);
 constexpr int PF = 4;  // per-tile floats before the top set: best, value, m, s
+constexpr int MAX_TOP = 128;  // the largest n_top (ops/fused_kernel.py MAX_TOP)
 
 // XLA's f32 erf_inv (Giles), as ops/gmm.py erfinv_f32: f32 coefficients
 // (decimal -> double -> float, as torch casts them), Horner steps as FMAs
@@ -121,54 +129,15 @@ __device__ __forceinline__ bool beats(Cand a, Cand b) {
   return a.v > b.v || (a.v == b.v && a.key < b.key);
 }
 
-template <bool NAN_AWARE>
+// the warp's best pair in the order of beats_nan
 __device__ __forceinline__ Cand warp_best(Cand a) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
     const Cand b{__shfl_xor_sync(0xffffffffu, a.v, off),
                  __shfl_xor_sync(0xffffffffu, a.key, off)};
-    if (NAN_AWARE ? beats_nan(b, a) : beats(b, a)) a = b;
+    if (beats_nan(b, a)) a = b;
   }
   return a;
-}
-
-// the best pair of the block; red: WARPS Cand of shared memory
-template <bool NAN_AWARE>
-__device__ Cand block_best(Cand a, Cand* red) {
-  const int warp = threadIdx.x >> 5;
-  a = warp_best<NAN_AWARE>(a);
-  if ((threadIdx.x & 31) == 0) red[warp] = a;
-  __syncthreads();
-  a = red[0];
-  for (int w = 1; w < WARPS; ++w) {
-    if (NAN_AWARE ? beats_nan(red[w], a) : beats(red[w], a)) a = red[w];
-  }
-  __syncthreads();  // red may be reused
-  return a;
-}
-
-// the block's sum in a fixed order (every run gives the same bits); red:
-// WARPS floats of shared memory
-__device__ float block_sum(float v, float* red) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float s = red[0];
-  for (int w = 1; w < WARPS; ++w) s += red[w];
-  __syncthreads();
-  return s;
-}
-
-__device__ float block_max(float v, float* red) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float m = red[0];
-  for (int w = 1; w < WARPS; ++w) m = fmaxf(m, red[w]);
-  __syncthreads();
-  return m;
 }
 
 // One block per (tile t, segment j, label l): TC candidates of one segment.
@@ -176,12 +145,15 @@ __device__ float block_max(float v, float* red) {
 //   part[slot*(PF + n_top) + {0: best score, 1: its value, 2: m, 3: s}],
 //   the tile's top n_top sanitized scores after them (descending, -inf
 //   padded), and arg[slot] = the best candidate's index in its segment.
-__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+template <int CPW>
+__global__ void __launch_bounds__(THREADS, 1)
 fused_tile_kernel(const float* __restrict__ xin, const float* __restrict__ u_val,
                   const float* __restrict__ rows, const float* __restrict__ params,
                   float* __restrict__ part, int* __restrict__ arg, int k, int n_cand, int K,
                   int k_below, int n_top, int log_scale, int draw_in_kernel) {
-  __shared__ float tile[3 * TK];
+  constexpr int TC = WARPS * CPW;
+  extern __shared__ __align__(16) float ring[];  // RING_BYTES
+  __shared__ RingBarriers bar;
   __shared__ float xs[TC];
   __shared__ float sc[TC];
   __shared__ float sd[TC];
@@ -191,15 +163,19 @@ fused_tile_kernel(const float* __restrict__ xin, const float* __restrict__ u_val
   const int i0 = t * TC;
   const int n_valid = min(TC, n_cand - i0);
   const size_t row = (static_cast<size_t>(l) * k + j) * n_cand + i0;
+  const float* pl = params + static_cast<size_t>(l) * 3 * K;
 
-  // candidates of this tile
+  // candidates of this tile: their loads go out before P's copies, and
+  // the copies overlap the draw
+  float x = 0.0f, u = 0.0f;
+  if (tid < n_valid) {
+    x = xin[row + tid];
+    if (draw_in_kernel) u = u_val[row + tid];
+  }
+  begin_tiles(pl, K, k_below, ring, bar);
   if (tid < TC) {
-    float x = 0.0f;
-    if (tid < n_valid) {
-      x = draw_in_kernel
-              ? draw_one(xin[row + tid], u_val[row + tid],
-                         rows + static_cast<size_t>(l) * 7 * k_below, k_below, log_scale)
-              : xin[row + tid];
+    if (draw_in_kernel && tid < n_valid) {
+      x = draw_one(x, u, rows + static_cast<size_t>(l) * 7 * k_below, k_below, log_scale);
     }
     xs[tid] = x;
   }
@@ -215,7 +191,7 @@ fused_tile_kernel(const float* __restrict__ xin, const float* __restrict__ u_val
     const float x = xs[c0 + c];
     z[c] = c0 + c < n_valid ? (log_scale ? logf(fmaxf(x, EPS)) : x) : 0.0f;
   }
-  pair_scores(params + static_cast<size_t>(l) * 3 * K, K, k_below, z, score, tile, lane);
+  pair_scores<CPW>(pl, K, k_below, z, score, ring, bar, lane);
 #pragma unroll
   for (int c = 0; c < CPW; ++c) {
     if (lane == c) {
@@ -240,7 +216,7 @@ fused_tile_kernel(const float* __restrict__ xin, const float* __restrict__ u_val
   }
   for (int r = n_valid + tid; r < n_top; r += THREADS) out[PF + r] = -CUDART_INF_F;
 
-  // winner, m and s: warp 0, two candidates per lane
+  // winner, m and s: warp 0
   if (warp == 0) {
     Cand best{-CUDART_INF_F, 0x7fffffff};
     float m = NEG_BIG;
@@ -249,7 +225,7 @@ fused_tile_kernel(const float* __restrict__ xin, const float* __restrict__ u_val
       if (beats_nan(c, best)) best = c;
       m = fmaxf(m, sd[i]);
     }
-    best = warp_best<true>(best);
+    best = warp_best(best);
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
     float s = 0.0f;
@@ -266,62 +242,106 @@ fused_tile_kernel(const float* __restrict__ xin, const float* __restrict__ u_val
   }
 }
 
-// One block per (segment j, label l): merges the segment's T tile partials.
-__global__ void __launch_bounds__(THREADS)
+constexpr int MERGE_THREADS = 256;
+
+// One block per (segment j, label l): merges the segment's T tile partials
+// (T * (PF + n_top) floats at part + seg * T * (PF + n_top)), reading them
+// where they lie (a few KB per segment, in L2 after the tile kernel).
+__global__ void __launch_bounds__(MERGE_THREADS)
 fused_merge_kernel(const float* __restrict__ part, const int* __restrict__ arg,
                    float* __restrict__ win, int* __restrict__ best_idx,
                    float* __restrict__ seg_m, float* __restrict__ seg_s,
                    float* __restrict__ seg_top, int k, int T, int n_top) {
-  __shared__ Cand red[WARPS];
-  __shared__ float redf[WARPS];
+  __shared__ int top_tiles[MAX_TOP];
   const int j = blockIdx.x, l = blockIdx.y;
   const size_t seg = static_cast<size_t>(l) * k + j;
-  const float* p = part + seg * T * (PF + n_top);
   const int stride = PF + n_top;
+  const float* __restrict__ p = part + seg * T * stride;
 
-  // winner: strict > in tile order (ties keep the earlier tile)
+  // The top set, with no rounds.  Each tile's entries are sorted in the
+  // order of `beats`, keyed (tile, position) as t * MAX_TOP + position.
+  // Only the nc = min(T, n_top) tiles whose heads are the best n_top heads
+  // can hold any of it (those heads beat every entry of the other tiles);
+  // top_tiles lists them in their heads' order.
+  auto entry = [&](int t, int r) { return Cand{p[t * stride + PF + r], t * MAX_TOP + r}; };
+  for (int t = threadIdx.x; t < T; t += MERGE_THREADS) {
+    const Cand h = entry(t, 0);
+    int rank = 0;
+#pragma unroll 8
+    for (int u = 0; u < T; ++u) rank += beats(entry(u, 0), h) ? 1 : 0;
+    if (rank < n_top) top_tiles[rank] = t;
+  }
+  __syncthreads();
+  // An entry of those tiles that the last of their heads does not beat has
+  // the rank: its position, plus per other such tile the count of that
+  // tile's entries that beat it (a binary search, the tile being sorted)
+  const int nc = min(T, n_top);
+  const Cand last_head = entry(top_tiles[nc - 1], 0);
+  for (int i = threadIdx.x; i < nc * n_top; i += MERGE_THREADS) {
+    const int ti = i / n_top, r = i - ti * n_top;
+    const Cand e = entry(top_tiles[ti], r);
+    if (nc == n_top && beats(last_head, e)) continue;
+    int rank = r;
+#pragma unroll 4
+    for (int v = 0; v < nc; ++v) {
+      const int u = top_tiles[v];
+      int lo = 0, hi = v == ti ? 0 : n_top;
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (beats(entry(u, mid), e)) {
+          lo = mid + 1;
+        } else {
+          hi = mid;
+        }
+      }
+      rank += lo;
+    }
+    if (rank < n_top) seg_top[seg * n_top + rank] = e.v;
+  }
+
+  // winner, m and s: warp 0, lane l holding tiles l, l + 32, ...
+  if (threadIdx.x >= 32) return;
+  const int lane = threadIdx.x;
+  // the winner: strict > in tile order (ties keep the earlier tile)
   Cand best{-CUDART_INF_F, 0x7fffffff};
   float m = NEG_BIG;
-  for (int t = threadIdx.x; t < T; t += THREADS) {
+  for (int t = lane; t < T; t += 32) {
     const Cand c{p[t * stride], t};
     if (beats_nan(c, best)) best = c;
     m = fmaxf(m, p[t * stride + 2]);
   }
-  best = block_best<true>(best, red);
-  m = block_max(m, redf);
-
+  best = warp_best(best);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
   // (m, s): every tile's sum rebased to the segment's max
   float s = 0.0f;
-  for (int t = threadIdx.x; t < T; t += THREADS) {
-    s += p[t * stride + 3] * expf(p[t * stride + 2] - m);
-  }
-  s = block_sum(s, redf);
-
-  if (threadIdx.x == 0) {
+  for (int t = lane; t < T; t += 32) s = fmaf(p[t * stride + 3], expf(p[t * stride + 2] - m), s);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+  if (lane == 0) {
     win[seg] = p[best.key * stride + 1];
-    best_idx[seg] = arg[seg * T + best.key];
+    best_idx[seg] = __ldg(arg + seg * T + best.key);
     seg_m[seg] = m;
     seg_s[seg] = s;
   }
+}
 
-  // top n_top over the T tile sets: round r takes the largest
-  // (value, position) pair after round r-1's in the order of `beats`
-  Cand prev{CUDART_INF_F, -1};
-  const int n = T * n_top;
-  for (int r = 0; r < n_top; ++r) {
-    Cand cur{-CUDART_INF_F, 0x7fffffff};
-    for (int e = threadIdx.x; e < n; e += THREADS) {
-      const Cand c{p[(e / n_top) * stride + PF + e % n_top], e};
-      if (beats(prev, c) && beats(c, cur)) cur = c;
-    }
-    cur = block_best<false>(cur, red);
-    if (threadIdx.x == 0) seg_top[seg * n_top + r] = cur.v;
-    prev = cur;
-  }
+template <int CPW>
+void launch_tiles(const float* xin, const float* u_val, const float* rows, const float* params,
+                  float* part, int* arg, int L, int k, int n_cand, int K, int k_below, int n_top,
+                  int log_scale, int draw_in_kernel, cudaStream_t st) {
+  constexpr int TC = WARPS * CPW;
+  cudaFuncSetAttribute(fused_tile_kernel<CPW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       RING_BYTES);
+  fused_tile_kernel<CPW><<<dim3((n_cand + TC - 1) / TC, k, L), THREADS, RING_BYTES, st>>>(
+      xin, u_val, rows, params, part, arg, k, n_cand, K, k_below, n_top, log_scale,
+      draw_in_kernel);
 }
 
 }  // namespace
 
+// part and arg hold the partials of ceil(n_cand / (WARPS * cpw)) tiles per
+// segment; the launch picks cpw = 8 or 4 as pair_score.cu's does
 extern "C" int fused_suggest_launch(const float* xin, const float* u_val, const float* rows,
                                     const float* params, float* part, int* arg, float* win,
                                     int* best_idx, float* seg_m, float* seg_s,
@@ -329,13 +349,18 @@ extern "C" int fused_suggest_launch(const float* xin, const float* u_val, const 
                                     int k_below, int n_top, int log_scale,
                                     int draw_in_kernel, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int T = (n_cand + TC - 1) / TC;
-  fused_tile_kernel<<<dim3(T, k, L), THREADS, 0, st>>>(
-      xin, u_val, rows, params, part, arg, k, n_cand, K, k_below, n_top, log_scale,
-      draw_in_kernel);
+  const int cpw = pick_cpw(L * k * ((n_cand + WARPS * 8 - 1) / (WARPS * 8)));
+  const int T = (n_cand + WARPS * cpw - 1) / (WARPS * cpw);
+  if (cpw == 8) {
+    launch_tiles<8>(xin, u_val, rows, params, part, arg, L, k, n_cand, K, k_below, n_top,
+                    log_scale, draw_in_kernel, st);
+  } else {
+    launch_tiles<4>(xin, u_val, rows, params, part, arg, L, k, n_cand, K, k_below, n_top,
+                    log_scale, draw_in_kernel, st);
+  }
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  fused_merge_kernel<<<dim3(k, L), THREADS, 0, st>>>(part, arg, win, best_idx, seg_m, seg_s,
-                                                     seg_top, k, T, n_top);
+  fused_merge_kernel<<<dim3(k, L), MERGE_THREADS, 0, st>>>(part, arg, win, best_idx, seg_m,
+                                                           seg_s, seg_top, k, T, n_top);
   return static_cast<int>(cudaGetLastError());
 }

@@ -29,16 +29,24 @@ from .score import effective_scorer, env_bool, pair_score
 
 EPS = 1e-12
 MAX_TOP = 128  # the reference's accumulator row
-TILE = 64      # candidates per block of the kernel (pair_lse.cuh TC)
+# candidates per block of the tile kernel at its smallest (pair_lse.cuh
+# WARPS x 4 candidates per warp): the scratch holds that many tiles
+MIN_TILE = 64
 _MAX_GRID_YZ = 65535
 
 
-def _lib():
-    lib = kernel_build.load("fused_suggest")
+def bind(lib):
+    """``lib``'s ``fused_suggest_launch`` with the ctypes signature of
+    ``csrc/fused_suggest.cu``'s C interface (``lib``: that source built, or
+    another build of it)."""
     fn = lib.fused_suggest_launch  # ctypes caches this object per library
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     return fn
+
+
+def _lib():
+    return bind(kernel_build.load("fused_suggest"))
 
 
 def _check(u_comp, u_val, draw_params, params, k_below, k, n_top, draw_in_kernel):
@@ -74,7 +82,7 @@ def _check(u_comp, u_val, draw_params, params, k_below, k, n_top, draw_in_kernel
             raise ValueError(f"u_val {tuple(u_val.shape)} != u_comp {(L, C)}")
         if draw_params.shape != (L, 7, k_below):
             raise ValueError(f"draw_params {tuple(draw_params.shape)} != {(L, 7, k_below)}")
-    tiles = -(-(C // k) // TILE)
+    tiles = -(-(C // k) // MIN_TILE)
     if (L > _MAX_GRID_YZ or k > _MAX_GRID_YZ
             or max(L * C, L * 3 * K, L * k * tiles * (4 + n_top)) >= 2**31):
         raise ValueError(f"shape L={L}, C={C}, K={K}, k={k} is beyond the kernel's "
@@ -83,12 +91,13 @@ def _check(u_comp, u_val, draw_params, params, k_below, k, n_top, draw_in_kernel
 
 
 def _launch(u_comp, u_val, draw_params, params, k_below, k, n_top, log_scale,
-            draw_in_kernel):
+            draw_in_kernel, fn=None):
     """Both kernels of ``csrc/fused_suggest.cu`` on the current stream (no
-    synchronise; a refused launch raises).  Inputs already checked."""
+    synchronise; a refused launch raises).  Inputs already checked.
+    ``fn``: another build's launch function (:func:`bind`)."""
     L, C = u_comp.shape
     n_cand = C // k
-    tiles = -(-n_cand // TILE)
+    tiles = -(-n_cand // MIN_TILE)
     dev = u_comp.device
     part = torch.empty(L * k * tiles * (4 + n_top), dtype=torch.float32, device=dev)
     arg = torch.empty(L * k * tiles, dtype=torch.int32, device=dev)
@@ -99,12 +108,13 @@ def _launch(u_comp, u_val, draw_params, params, k_below, k, n_top, log_scale,
     seg_top = torch.empty((L, k, n_top), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _lib()(u_comp.data_ptr(), u_val.data_ptr() if draw_in_kernel else None,
-                     draw_params.data_ptr() if draw_in_kernel else None, params.data_ptr(),
-                     part.data_ptr(), arg.data_ptr(), win.data_ptr(), best_idx.data_ptr(),
-                     seg_m.data_ptr(), seg_s.data_ptr(), seg_top.data_ptr(),
-                     L, k, n_cand, params.shape[2], k_below, n_top, int(log_scale),
-                     int(draw_in_kernel), stream)
+        err = (fn or _lib())(
+            u_comp.data_ptr(), u_val.data_ptr() if draw_in_kernel else None,
+            draw_params.data_ptr() if draw_in_kernel else None, params.data_ptr(),
+            part.data_ptr(), arg.data_ptr(), win.data_ptr(), best_idx.data_ptr(),
+            seg_m.data_ptr(), seg_s.data_ptr(), seg_top.data_ptr(),
+            L, k, n_cand, params.shape[2], k_below, n_top, int(log_scale),
+            int(draw_in_kernel), stream)
     if err != 0:
         raise RuntimeError(f"fused_suggest kernel launch failed: CUDA error {err}")
     return win, best_idx, seg_m, seg_s, seg_top

@@ -41,6 +41,12 @@ def _nvcc() -> str:
                        "the kernels in hyperopt_tpu_torch/csrc")
 
 
+def nvcc_command(src, out) -> list:
+    """The ``nvcc`` command that builds CUDA source ``src`` into the shared
+    library ``out`` with the kernels' flags."""
+    return [_nvcc(), *NVCC_FLAGS, "-o", str(out), str(src)]
+
+
 def library_path(name: str) -> Path:
     """Where kernel ``name``'s library goes: named by a hash of its source,
     every shared header in ``csrc/`` and the flags, so an edit to any of
@@ -67,7 +73,7 @@ def build(names) -> dict:
             report[name] = {"path": str(out), "seconds": 0.0, "ptxas": ""}
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = nvcc_command(CSRC / f"{name}.cu", tmp)
         jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True),
                       tmp, out)

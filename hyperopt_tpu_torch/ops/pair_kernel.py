@@ -26,14 +26,20 @@ from .score import effective_scorer, pair_score
 _MAX_GRID_Y = 65535
 
 
-def _lib():
-    lib = kernel_build.load("pair_score")
+def bind(lib):
+    """``lib``'s ``pair_score_batched_launch`` with the ctypes signature of
+    ``csrc/pair_score.cu``'s C interface (``lib``: that source built, or
+    another build of it)."""
     fn = lib.pair_score_batched_launch  # ctypes caches this object per library
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                    ctypes.c_void_p]
     return fn
+
+
+def _lib():
+    return bind(kernel_build.load("pair_score"))
 
 
 def _check(z, params, k_below):
@@ -58,17 +64,18 @@ def _check(z, params, k_below):
         raise ValueError(f"shape L={L}, C={C}, K={K} is beyond the kernel's int indexing")
 
 
-def _launch(z, params, k_below):
+def _launch(z, params, k_below, fn=None):
     """Scores ``[L, C]`` from the kernel on the current stream (no
-    synchronise; a refused launch raises).  Inputs already checked."""
+    synchronise; a refused launch raises).  Inputs already checked.
+    ``fn``: another build's launch function (:func:`bind`)."""
     L, C = z.shape
     out = torch.empty_like(z)
     if C == 0:
         return out
     with torch.cuda.device(z.device):
         stream = torch.cuda.current_stream(z.device).cuda_stream
-        err = _lib()(z.data_ptr(), params.data_ptr(), out.data_ptr(),
-                     L, C, params.shape[2], k_below, stream)
+        err = (fn or _lib())(z.data_ptr(), params.data_ptr(), out.data_ptr(),
+                             L, C, params.shape[2], k_below, stream)
     if err != 0:
         raise RuntimeError(f"pair_score kernel launch failed: CUDA error {err}")
     return out

@@ -156,3 +156,65 @@ def test_pair_score_single_on_card(cuda):
                                                                          before[1])
     assert_close_to_plain(got[None], pair_score(z, params, 33),
                           pair_score(z.double(), params.double(), 33))
+
+
+def test_single_launch_equals_row0_of_batched_bitwise(cuda):
+    """The L=1 launch (4 candidates per warp) and row 0 of an L=2 launch (8
+    per warp) give the same bits: a score depends only on K and the lane's
+    components, not on the launch (csrc/pair_lse.cuh)."""
+    from hyperopt_tpu_torch.ops.pair_kernel import pair_score_single
+
+    z, params = case(L=2, C=8192, kb=33, ka=16385, seed=3, real_a=10001)
+    z, params = z.to(cuda), params.to(cuda)
+    both = pair_score_batched(z, params, 33)
+    one = pair_score_single(z[0].contiguous(), params[0].contiguous(), 33)
+    torch.cuda.synchronize()
+    assert torch.equal(one.view(torch.int32), both[0].view(torch.int32))
+
+
+@pytest.mark.parametrize("shape", [
+    dict(L=2, C=8192, kb=33, ka=16385, real_a=10001),
+    dict(L=3, C=1000, kb=1, ka=1025, real_a=900),
+])
+def test_candidates_per_warp_choices_bitwise(cuda, shape):
+    """The kernel's two candidates-per-warp instances give the same bits."""
+    import ctypes
+
+    from hyperopt_tpu_torch.ops import kernel_build
+
+    fn = kernel_build.load("pair_score").pair_score_batched_launch_cpw
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    z, params = case(seed=4, **shape)
+    z, params = z.to(cuda), params.to(cuda)
+    L, C = z.shape
+    outs = []
+    for cpw in (4, 8):
+        out = torch.empty_like(z)
+        err = fn(z.data_ptr(), params.data_ptr(), out.data_ptr(), L, C, params.shape[2],
+                 shape["kb"], cpw, torch.cuda.current_stream().cuda_stream)
+        assert err == 0
+        outs.append(out)
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0].view(torch.int32), outs[1].view(torch.int32))
+    assert torch.isfinite(outs[0]).all()
+
+
+def test_fused_top128_merges_from_global_memory(cuda):
+    """n_top = 128 at L=1, 8192 candidates: the merge kernel ranks the
+    largest top set from the tiles' partials in device memory (67 KB); its
+    top set, winner and (m, s) agree with the plain version."""
+    from hyperopt_tpu_torch.ops.fused_kernel import fused_suggest, fused_suggest_plain
+
+    _, _, _, cands, params = fused_case(L=1, k=1, n_cand=8192, kb=33, ka=16385, seed=5)
+    got = fused_suggest(cands, None, None, params, 33, 1, n_top=128)
+    plain = fused_suggest_plain(cands, None, None, params, 33, 1, n_top=128)
+    torch.cuda.synchronize()
+    s = pair_score_batched(cands, params, 33)
+    assert torch.equal(got[1].long(), torch.argmax(s, dim=1, keepdim=True))
+    ref = pair_score(cands, params, 33)
+    plain_err = float((ref.double() - pair_score(cands.double(), params.double(), 33)).abs().max())
+    allow = 1e-4 + 1e-5 * float(ref.abs().max()) + 2 * plain_err
+    assert float((got[4] - plain[4]).abs().max()) <= allow
+    assert float((got[2] - plain[2]).abs().max()) <= allow
+    assert float((got[3].log() - plain[3].log()).abs().max()) <= 2 * allow
