@@ -34,8 +34,23 @@ non-zero without the final line):
     score, argmax) through the single-label pair-score launch, against the
     plain scorer.
 11. ``quickstart``: the README quick-start space (index families,
-    startup then TPE) for 40 evals.
-12. ``timing``: each kernel, its plain version and one PyTorch library call
+    startup then TPE) for 40 evals, on the serial loop.
+12. ``pipelined_main_path``: fmin's default pipelined path at the main
+    path's size with ``partial(tpe.suggest, n_EI_candidates=8192)`` and
+    the bench objective plus a 50 ms sleep, at ``max_speculation`` 0, 1
+    and 2 from one ``rstate``: k=1 gives k=0's trials value for value,
+    2 kernel launches per dispatched suggest, no failed speculation; wall
+    ms per trial and the engine's ``SpeculationStats``.
+13. ``multi_study``: four 10,000-trial studies prepared with
+    ``tpe.suggest_prepare`` and dispatched by one
+    ``multi_study_suggest_async``: each study's docs equal its unbatched
+    suggest, 8 pair-score launches; ms of the batched dispatch against
+    four sequential suggests.
+14. ``fused_probe``: the fused kernel's timing probe through
+    ``resolve_scorer`` on the card (unfused and fused ms, the verdict),
+    then an unpinned suggest at the main path's history launches the
+    kernel the verdict names.
+15. ``timing``: each kernel, its plain version and one PyTorch library call
     computing the same function, by CUDA events at the main-path shape;
     the kernel's device ms per launch (``torch.profiler``); its bound, the
     larger of the f32 operations at the f32 peak, the issue slots and SFU
@@ -43,13 +58,16 @@ non-zero without the final line):
     the bytes at the memory rate, and its share of that bound; beside it
     the SFU-only time and its share.
 
-Then the ``kernels`` line, the ``nvidia-smi`` line, and last
+Every phase but ``fused_probe`` runs with ``HYPEROPT_TPU_FUSED_PROBE=0``,
+so the probe does not change the tier the others measure.  Then the
+``kernels`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of
 ``hyperopt_tpu``; needs one card.
 """
 
 import contextlib
 import json
+import logging
 import math
 import os
 import re
@@ -739,7 +757,7 @@ def phase_quickstart(T, counters):
     trials = T.Trials()
     T.fmin(bench_like_quickstart_objective, quickstart_space(T.hp),
            algo=partial(T.tpe.suggest, n_startup_jobs=10), max_evals=40, trials=trials,
-           rstate=np.random.default_rng(0), show_progressbar=False)
+           rstate=np.random.default_rng(0), show_progressbar=False, max_speculation=0)
     assert len(trials.trials) == 40
     for doc in trials.trials:
         v = {k: x[0] for k, x in doc["misc"]["vals"].items() if x}
@@ -753,6 +771,190 @@ def phase_quickstart(T, counters):
 
 def bench_like_quickstart_objective(c):
     return (np.log(c["lr"]) + 7.0) ** 2 + c["layers"] + c["arch"].get("width", 0) / 1024.0
+
+
+OBJECTIVE_SLEEP_S = 0.05  # a stand-in for a training run
+
+
+def training_objective(c):
+    time.sleep(OBJECTIVE_SLEEP_S)
+    return bench_objective(c)
+
+
+class FailureLog(logging.Handler):
+    """Keeps every record of the port's loggers that reports a failure
+    (the engine's "speculative dispatch failed" and its kin)."""
+
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.lines = []
+
+    def emit(self, record):
+        msg = record.getMessage()
+        if "failed" in msg:
+            self.lines.append(f"{record.name}: {msg}")
+
+
+@contextlib.contextmanager
+def failure_log():
+    log = FailureLog()
+    root = logging.getLogger("hyperopt_tpu_torch")
+    root.addHandler(log)
+    try:
+        yield log
+    finally:
+        root.removeHandler(log)
+
+
+def phase_pipelined_main_path(T, counters):
+    """fmin's default pipelined path (the algorithm a partial, so the
+    engine finds its asynchronous variant) at the main path's size and a
+    50 ms objective, at max_speculation 0, 1 and 2 from one rstate."""
+    algo = partial(T.tpe.suggest, n_EI_candidates=N_CAND)
+    serial_ms = []
+
+    def timed_algo(*args):
+        # k=0 only: the serial loop's suggests, each ended by the readback
+        t0 = time.perf_counter()
+        docs = algo(*args)
+        serial_ms.append((time.perf_counter() - t0) * 1e3)
+        return docs
+
+    runs = {}
+    for k in (0, 1, 2):
+        trials = prefilled_trials(T, N_HISTORY)
+        it = T.FMinIter(timed_algo if k == 0 else algo,
+                        T.Domain(training_objective, bench_space(T.hp)), trials,
+                        rstate=np.random.default_rng(0),
+                        max_evals=N_HISTORY + N_SUGGESTS, show_progressbar=False,
+                        max_speculation=k)
+        for c in counters:
+            c.launches = 0
+        with failure_log() as failed:
+            t0 = time.perf_counter()
+            it.exhaust()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        launches = {c.__name__: c.launches for c in counters}
+        st = it.speculation_stats
+        assert len(trials.trials) == N_HISTORY + N_SUGGESTS
+        for doc in trials.trials[N_HISTORY:]:
+            check_bench_values({kk: v[0] for kk, v in doc["misc"]["vals"].items()})
+            assert math.isfinite(doc["result"]["loss"])
+        dispatched = N_SUGGESTS if k == 0 else st.n_dispatched + st.n_sync
+        row = {"k": k, "wall_ms": wall_ms, "wall_ms_per_trial": wall_ms / N_SUGGESTS,
+               "objective_ms": OBJECTIVE_SLEEP_S * 1e3, "launches": launches,
+               "suggests_dispatched": dispatched,
+               "hidden_s": st.hidden_s, "exposed_s": st.exposed_s,
+               "resolve_s": st.resolve_s, "sync_s": st.sync_s,
+               "reissue_exposed_s": st.reissue_exposed_s,
+               "hidden_share": (st.hidden_s / (st.hidden_s + st.exposed_s)
+                                if k else None),
+               "speculation": st.summary(), "failed_log_lines": failed.lines}
+        if k:
+            row.update(exposed_ms_per_trial=st.exposed_s * 1e3 / N_SUGGESTS,
+                       launch_ms_per_dispatch=st.hidden_s * 1e3 / max(st.n_dispatched, 1),
+                       resolve_ms_per_use=st.resolve_s * 1e3 / max(st.n_used, 1))
+            assert st.n_used + st.n_sync == N_SUGGESTS, st.summary()
+        else:
+            row.update(exposed_ms_per_trial=sum(serial_ms) / N_SUGGESTS,
+                       suggest_ms_all=list(serial_ms))
+        # what is left of a trial besides the objective and the suggest
+        # time it waited for: the fmin loop's own host work
+        row["loop_ms_per_trial"] = (row["wall_ms_per_trial"] - row["objective_ms"]
+                                      - row["exposed_ms_per_trial"])
+        runs[k] = (row, suggested(trials))
+        emit("pipelined_main_path", n_history=N_HISTORY, n_suggests=N_SUGGESTS,
+             n_EI_candidates=N_CAND, **row)
+        assert launches["pair_score_batched"] == 2 * dispatched, (k, launches, st.summary())
+        assert launches["fused_suggest"] == 0, launches
+        assert not failed.lines, failed.lines
+    same = [a == b for a, b in zip(runs[1][1], runs[0][1])]
+    emit("pipelined_main_path", k1_trials_equal_to_k0=sum(same), n_suggests=N_SUGGESTS)
+    assert len(same) == N_SUGGESTS and all(same), same
+    return {k: row for k, (row, _) in runs.items()}
+
+
+def phase_multi_study(T, counters, rounds=3):
+    """Four studies at the main path's history, prepared apart and
+    dispatched as one batch; timed against four sequential suggests in
+    turns (sequential, batched, batched, sequential, ...)."""
+    from hyperopt_tpu_torch.algos import tpe_device as td
+
+    studies = [(T.Domain(bench_objective, bench_space(T.hp)), prefilled_trials(T, N_HISTORY, seed=s),
+                100 + s) for s in range(4)]
+    kw = dict(n_EI_candidates=N_CAND)
+
+    def sequential():
+        return [T.tpe.suggest([N_HISTORY], dom, trials, seed, **kw)
+                for dom, trials, seed in studies]
+
+    def batched():
+        preps = [T.tpe.suggest_prepare([N_HISTORY], dom, trials, seed, **kw)
+                 for dom, trials, seed in studies]
+        resolvers = td.multi_study_suggest_async([req for req, _ in preps])
+        return [finish(r(), diag=r.diag) for r, (_, finish) in zip(resolvers, preps)]
+
+    ref = [[d["misc"]["vals"] for d in docs] for docs in sequential()]  # uploads too
+    times = {"sequential": [], "batched": []}
+    launches = None
+    for i in range(rounds):
+        for name in (("sequential", "batched") if i % 2 == 0 else ("batched", "sequential")):
+            for c in counters:
+                c.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            docs = (sequential if name == "sequential" else batched)()
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+            got = [[d["misc"]["vals"] for d in dd] for dd in docs]
+            assert got == ref, (name, got, ref)
+            if name == "batched" and launches is None:
+                launches = {c.__name__: c.launches for c in counters}
+    emit("multi_study", n_studies=len(studies), n_history=N_HISTORY, n_EI_candidates=N_CAND,
+         launches_batched=launches, docs_equal_unbatched=True,
+         batched_ms=times["batched"], sequential_ms=times["sequential"],
+         batched_ms_median=float(np.median(times["batched"])),
+         sequential_ms_median=float(np.median(times["sequential"])))
+    assert launches["pair_score_batched"] == 2 * len(studies), launches
+    return studies
+
+
+def phase_fused_probe(T, counters, study):
+    """The probe through resolve_scorer on the card with no pin, then one
+    unpinned suggest at the main path's history: it launches the kernel
+    the verdict names, 2 times."""
+    from hyperopt_tpu_torch.ops import fused_kernel
+    from hyperopt_tpu_torch.ops.score import resolve_scorer
+
+    pinned = os.environ.pop("HYPEROPT_TPU_FUSED_PROBE")
+    try:
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        tier = resolve_scorer(torch.device(DEV))
+        probe_s = time.perf_counter() - t0
+        probe = fused_kernel.probe_result()
+        assert probe is not None and tier == ("fused" if probe["fused"] else "pallas"), probe
+        probe_launches = {c.__name__: c.launches for c in counters}
+        dom, trials, seed = study
+        for c in counters:
+            c.launches = 0
+        docs = T.tpe.suggest([N_HISTORY], dom, trials, seed, n_EI_candidates=N_CAND)
+        torch.cuda.synchronize()
+        check_bench_values({k: v[0] for k, v in docs[0]["misc"]["vals"].items()})
+        launches = {c.__name__: c.launches for c in counters}
+        emit("fused_probe", unfused_ms=probe["unfused_ms"], fused_ms=probe["fused_ms"],
+             verdict=tier, probe_seconds=probe_s, probe_launches=probe_launches,
+             shape=dict(k_total=8224, n_cand=2048, n_labels=4, iters=8),
+             suggest_launches=launches)
+        chosen = "fused_suggest" if tier == "fused" else "pair_score_batched"
+        other = "pair_score_batched" if tier == "fused" else "fused_suggest"
+        assert launches[chosen] == 2 and launches[other] == 0, (tier, launches)
+    finally:
+        os.environ["HYPEROPT_TPU_FUSED_PROBE"] = pinned
+        fused_kernel.set_default_fused(None)
+    return probe
 
 
 def exp_split():
@@ -924,8 +1126,12 @@ def main():
     # the plain versions and the library yardstick run IEEE f32 matmuls
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    for k in ("HYPEROPT_TPU_SCORER", "HYPEROPT_TPU_FUSED", "HYPEROPT_TPU_FUSED_DRAW"):
+    for k in ("HYPEROPT_TPU_SCORER", "HYPEROPT_TPU_FUSED", "HYPEROPT_TPU_FUSED_DRAW",
+              "HYPEROPT_MAX_SPECULATION"):
         os.environ.pop(k, None)  # the default tier unless a phase sets one
+    # the fused probe runs in its own phase only: the others keep the tier
+    # they measured before it existed
+    os.environ["HYPEROPT_TPU_FUSED_PROBE"] = "0"
     import hyperopt_tpu_torch as T
     from hyperopt_tpu_torch.ops.fused_kernel import fused_suggest
     from hyperopt_tpu_torch.ops.pair_kernel import pair_score_batched, pair_score_single
@@ -947,10 +1153,15 @@ def main():
         phase_profile(T, fused_runs["0"][1], fused_runs["0"][2], "fused")
     single = phase_single_label(counters)
     phase_quickstart(T, counters)
+    phase_pipelined_main_path(T, counters)
+    studies = phase_multi_study(T, counters)
+    phase_fused_probe(T, counters, studies[0])
     launches = {**launches, "fused_suggest": fused_runs["0"][0]["fused_suggest"],
                 "fused_suggest_draw": fused_runs["1"][0]["fused_suggest"],
                 "pair_score_single": single["pair_score_single"]}
     kernels = phase_timing(errs, launches, card)
+    assert "jax" not in sys.modules and not any(
+        m == "hyperopt_tpu" or m.startswith("hyperopt_tpu.") for m in sys.modules)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -32,3 +32,9 @@ def suggest(new_ids, domain, trials, seed, device=None):
     miscs_update_idxs_vals(miscs, idxs, vals)
     results = [domain.new_result() for _ in new_ids]
     return trials.new_trial_docs(new_ids, [None] * len(new_ids), results, miscs)
+
+
+# random search reads nothing from the trial history: a speculative
+# suggestion computed before a trial completed equals one computed after,
+# so the speculative engine never relaunches it
+suggest.speculation_policy = "independent"

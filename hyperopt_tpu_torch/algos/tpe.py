@@ -14,9 +14,17 @@ device-resident history (``tpe_device``), one label-stacked pass per
 distribution family, with the O(candidates × history) pair score in a
 hand-written CUDA kernel.  The scorer tier (``ops.score.resolve_scorer``:
 ``HYPEROPT_TPU_SCORER``, ``HYPEROPT_TPU_FUSED``; ``HYPEROPT_TPU_FUSED_DRAW``
-for the fused tier's in-kernel draw) is resolved once per suggest, and
+for the fused tier's in-kernel draw) is resolved once per suggest (on the
+card the first resolution runs the fused kernel's timing probe), and
 each suggest publishes its search-health snapshot
 (``diagnostics.last_suggest_diag``).
+
+:func:`suggest_async` launches the same suggest on the card's suggest
+stream and returns a resolver (the speculative engine's dispatch,
+optionally fit with in-flight trials assumed to land above the
+γ-quantile); :func:`suggest_prepare` builds the request list for a
+batched dispatch of several studies
+(``tpe_device.multi_study_suggest_async``).
 
 Config is the reference's *partial-as-config* pattern:
 ``functools.partial(tpe.suggest, gamma=0.3, n_EI_candidates=1000)``.
@@ -33,7 +41,7 @@ import torch
 
 from .. import diagnostics as sdiag
 from ..base import miscs_update_idxs_vals
-from ..device import resolve_device
+from ..device import on_suggest_stream, resolve_device, upload
 from ..ops import gmm as gmm_ops
 from ..ops import parzen as parzen_ops
 from ..ops.fused_kernel import resolve_fused_draw
@@ -249,7 +257,7 @@ def _continuous_best_core(
         above[None], torch.as_tensor([int(n_above)], device=dev), float(prior_weight),
         pm, ps, lf)
     cand = gmm_ops.gmm_sample(u_comp[None], u_val[None], wb, mb, sb, lo, hi, qq, log_scale)
-    scorer = resolve_scorer()
+    scorer = resolve_scorer(dev)
     if quantized or scorer == "exact":
         score = (gmm_ops.gmm_lpdf(cand, wb, mb, sb, lo, hi, qq, log_scale, quantized)
                  - gmm_ops.gmm_lpdf(cand, wa, ma, sa, lo, hi, qq, log_scale, quantized))[0]
@@ -323,10 +331,30 @@ def _suggest_device(
     param_locks,
     trial_filter,
     device,
+    defer=False,
+    pending=None,
+    prepare=False,
 ):
     """The production suggest path: device-resident history, one
     label-stacked pass per distribution family, O(k) host↔device traffic
-    per call and one readback (see :mod:`.tpe_device`)."""
+    per call and one readback (see :mod:`.tpe_device`).  Everything it
+    launches goes on the card's suggest stream.
+
+    ``prepare=True`` builds the request list without launching it and
+    returns ``(requests, finish)``: ``finish(outs, diag=None)`` turns the
+    per-family winners into trial docs (the hook of
+    ``tpe_device.multi_study_suggest_async``).  ``defer=True`` launches
+    the families and returns a zero-argument resolver of the docs instead
+    of waiting for the readback.
+
+    ``pending`` (in-flight trials' ``misc["vals"]`` dicts, in completion
+    order) fits against the hypothetical history in which each of them
+    completed with a worst-case loss (``DeviceHistory
+    .hypothetical_append``): their parameters join g(x), ``n_below`` is
+    computed for the grown count, and when a pending result does land in
+    the above set the suggestion equals the post-completion serial one
+    exactly.  Incompatible with ``trial_filter``, which indexes the real
+    history.  Reference: ``hyperopt_tpu/algos/tpe.py:619-846``."""
     from . import tpe_device as td
 
     new_ids = list(new_ids)
@@ -334,121 +362,145 @@ def _suggest_device(
     lf = int(linear_forgetting) if linear_forgetting else 0
     n_cand = int(n_EI_candidates)
 
+    if pending and trial_filter is not None:
+        raise ValueError("pending speculation is incompatible with trial_filter")
     dh = td.device_history_for(trials, domain.space, device)
     dev = dh.device
-    dh.sync(hist)
+    with on_suggest_stream(dev):
+        dh.sync(hist)
 
-    mask = None
-    if trial_filter is not None:
-        mask = trial_filter(hist) if callable(trial_filter) else trial_filter
-        mask = np.asarray(mask, dtype=bool)
-        if mask.shape != hist.loss_tids.shape:
-            raise ValueError(
-                f"trial_filter mask shape {mask.shape} != history {hist.loss_tids.shape}"
-            )
-        if not mask.any():
-            mask = None
-    n_eff = int(mask.sum()) if mask is not None else len(hist.losses)
-    n_below = int(np.ceil(gamma * np.sqrt(n_eff)))
-    if linear_forgetting is not None:  # ap_split_trials gamma_cap semantics
-        n_below = min(n_below, int(linear_forgetting))
-    cap_b = parzen_ops.bucket(max(n_below, 1))
-    keep_mask = dh.keep_mask(mask)
-
-    uniforms = _label_uniforms(seed, dh.n_labels, k * n_cand, dev)
-    # the tier is resolved once per suggest; only fused programs carry the
-    # in-kernel-draw switch
-    scorer = resolve_scorer()
-    tier = {"scorer": scorer}
-    if scorer == "fused":
-        tier["fused_draw"] = resolve_fused_draw()
-    specs = domain.space.specs
-
-    # hard locks: value pinned, posterior skipped (activity still derived)
-    hard = {}
-    if param_locks:
-        for lb, (center, radius) in param_locks.items():
-            if radius <= 0:
-                spec = specs[lb]
-                if spec.is_integer or spec.dist in ("randint", "categorical"):
-                    hard[lb] = np.full(k, int(round(center)), np.int64)
-                else:
-                    hard[lb] = np.full(k, float(center), np.float64)
-
-    def upload(a):
-        return torch.as_tensor(a, device=dev)
-
-    requests, req_fams = [], []
-    for fam in dh.families.values():
-        u = uniforms[fam.kis]
-        lock_c = np.zeros(fam.L, np.float32)
-        lock_r = np.full(fam.L, np.inf, np.float32)
-        if fam.key[0] == "cont":
-            priors = fam.default_priors
-            if param_locks:
-                priors = priors.copy()
-                for i, lb in enumerate(fam.labels):
-                    lock = param_locks.get(lb)
-                    if lock is None or lock[1] <= 0:
-                        continue
-                    center, radius = lock
-                    c_fit = (
-                        float(np.log(max(center, EPS)))
-                        if fam.log_scale
-                        else float(center)
-                    )
-                    lo = max(float(priors[i, 2]), c_fit - radius)
-                    hi = min(float(priors[i, 3]), c_fit + radius)
-                    if lo < hi:  # neighborhood inside support: narrow
-                        priors[i, 0] = np.clip(c_fit, lo, hi)
-                        priors[i, 1] = min(float(priors[i, 1]), 2.0 * radius)
-                        priors[i, 2], priors[i, 3] = lo, hi
-                        lock_c[i], lock_r[i] = c_fit, radius
-            st = dict(
-                cap_b=cap_b, k=k, n_cand=n_cand, lf=lf,
-                log_scale=fam.log_scale, quantized=fam.quantized,
-                n_buckets=_family_bucket_count(fam, k * n_cand) if fam.quantized else 0,
-                **tier,
-            )
-            requests.append((
-                "cont",
-                (u, fam.obs, fam.pos, fam.counts, dh.losses, keep_mask, n_below,
-                 float(np.float32(prior_weight)), upload(priors), upload(lock_c),
-                 upload(lock_r)),
-                st,
-            ))
+        mask = None
+        if trial_filter is not None:
+            mask = trial_filter(hist) if callable(trial_filter) else trial_filter
+            mask = np.asarray(mask, dtype=bool)
+            if mask.shape != hist.loss_tids.shape:
+                raise ValueError(
+                    f"trial_filter mask shape {mask.shape} != history "
+                    f"{hist.loss_tids.shape}"
+                )
+            if not mask.any():
+                mask = None
+        n_pending = len(pending) if pending else 0
+        n_eff = int(mask.sum()) if mask is not None else len(hist.losses) + n_pending
+        n_below = int(np.ceil(gamma * np.sqrt(n_eff)))
+        if linear_forgetting is not None:  # ap_split_trials gamma_cap semantics
+            n_below = min(n_below, int(linear_forgetting))
+        cap_b = parzen_ops.bucket(max(n_below, 1))
+        if pending:
+            losses_buf, hyp_views, keep_mask = dh.hypothetical_append(hist, list(pending))
         else:
-            if param_locks:
-                for i, lb in enumerate(fam.labels):
-                    lock = param_locks.get(lb)
-                    if lock is not None and lock[1] > 0:
-                        lock_c[i] = float(lock[0] - fam.offsets[i])
-                        lock_r[i] = float(lock[1])
-            requests.append((
-                "idx",
-                (u, fam.obs, fam.pos, fam.counts, dh.losses, keep_mask, n_below,
-                 float(np.float32(prior_weight)), upload(fam.prior_p), upload(lock_c),
-                 upload(lock_r)),
-                dict(cap_b=cap_b, upper=fam.upper, k=k, n_cand=n_cand, lf=lf),
-            ))
-        req_fams.append(fam)
+            losses_buf, hyp_views, keep_mask = dh.losses, {}, dh.keep_mask(mask)
 
-    outs, diags = td.multi_family_suggest(requests)
-    chosen_vals = {}
-    for fam, best in zip(req_fams, outs):
-        for i, lb in enumerate(fam.labels):
-            if lb not in hard:
-                chosen_vals[lb] = fam.from_fit_space(i, best[i])
-    chosen_vals.update(hard)
-    docs = _emit_docs(new_ids, domain, trials, chosen_vals, k)
-    if sdiag.enabled():
-        # published after the docs are built: a suggest that raises leaves
-        # nothing for a later one to claim
-        sdiag.publish_suggest_diag(sdiag.snapshot_from_fused(
-            req_fams, diags, n_below=n_below, gamma=float(gamma), n_eff=n_eff,
-            k=k, n_cand=n_cand,
-        ))
-    return docs
+        uniforms = _label_uniforms(seed, dh.n_labels, k * n_cand, dev)
+        # the tier is resolved once per suggest; only fused programs carry
+        # the in-kernel-draw switch
+        scorer = resolve_scorer(dev)
+        tier = {"scorer": scorer}
+        if scorer == "fused":
+            tier["fused_draw"] = resolve_fused_draw()
+        specs = domain.space.specs
+
+        # hard locks: value pinned, posterior skipped (activity still derived)
+        hard = {}
+        if param_locks:
+            for lb, (center, radius) in param_locks.items():
+                if radius <= 0:
+                    spec = specs[lb]
+                    if spec.is_integer or spec.dist in ("randint", "categorical"):
+                        hard[lb] = np.full(k, int(round(center)), np.int64)
+                    else:
+                        hard[lb] = np.full(k, float(center), np.float64)
+
+        requests, req_fams = [], []
+        for fam in dh.families.values():
+            f_obs, f_pos, f_counts = hyp_views.get(fam.key, (fam.obs, fam.pos, fam.counts))
+            # basic indexing and one stack: a list index would be a blocking upload
+            u = torch.stack([uniforms[i] for i in fam.kis])
+            lock_c = np.zeros(fam.L, np.float32)
+            lock_r = np.full(fam.L, np.inf, np.float32)
+            if fam.key[0] == "cont":
+                priors = fam.default_priors
+                if param_locks:
+                    priors = priors.copy()
+                    for i, lb in enumerate(fam.labels):
+                        lock = param_locks.get(lb)
+                        if lock is None or lock[1] <= 0:
+                            continue
+                        center, radius = lock
+                        c_fit = (
+                            float(np.log(max(center, EPS)))
+                            if fam.log_scale
+                            else float(center)
+                        )
+                        lo = max(float(priors[i, 2]), c_fit - radius)
+                        hi = min(float(priors[i, 3]), c_fit + radius)
+                        if lo < hi:  # neighborhood inside support: narrow
+                            priors[i, 0] = np.clip(c_fit, lo, hi)
+                            priors[i, 1] = min(float(priors[i, 1]), 2.0 * radius)
+                            priors[i, 2], priors[i, 3] = lo, hi
+                            lock_c[i], lock_r[i] = c_fit, radius
+                st = dict(
+                    cap_b=cap_b, k=k, n_cand=n_cand, lf=lf,
+                    log_scale=fam.log_scale, quantized=fam.quantized,
+                    n_buckets=(_family_bucket_count(fam, k * n_cand)
+                               if fam.quantized else 0),
+                    **tier,
+                )
+                requests.append((
+                    "cont",
+                    (u, f_obs, f_pos, f_counts, losses_buf, keep_mask, n_below,
+                     float(np.float32(prior_weight)), upload(priors, dev),
+                     upload(lock_c, dev), upload(lock_r, dev)),
+                    st,
+                ))
+            else:
+                if param_locks:
+                    for i, lb in enumerate(fam.labels):
+                        lock = param_locks.get(lb)
+                        if lock is not None and lock[1] > 0:
+                            lock_c[i] = float(lock[0] - fam.offsets[i])
+                            lock_r[i] = float(lock[1])
+                requests.append((
+                    "idx",
+                    (u, f_obs, f_pos, f_counts, losses_buf, keep_mask, n_below,
+                     float(np.float32(prior_weight)), upload(fam.prior_p, dev),
+                     upload(lock_c, dev), upload(lock_r, dev)),
+                    dict(cap_b=cap_b, upper=fam.upper, k=k, n_cand=n_cand, lf=lf),
+                ))
+            req_fams.append(fam)
+
+    def finish_outs(outs, diag=None):
+        chosen_vals = {}
+        for fam, best in zip(req_fams, outs):
+            best = np.asarray(best)  # [L, k]
+            for i, lb in enumerate(fam.labels):
+                if lb not in hard:
+                    chosen_vals[lb] = fam.from_fit_space(i, best[i])
+        chosen_vals.update(hard)
+        docs = _emit_docs(new_ids, domain, trials, chosen_vals, k)
+        if diag is not None and sdiag.enabled():
+            # published after the docs are built: a finish that raises
+            # leaves nothing for a later suggest to claim
+            sdiag.publish_suggest_diag(sdiag.snapshot_from_fused(
+                req_fams, diag, n_below=n_below, gamma=float(gamma), n_eff=n_eff,
+                k=k, n_cand=n_cand,
+            ))
+        return docs
+
+    # callers that batch several suggests check this before passing the
+    # batched readback's diag rows to a finish
+    finish_outs.accepts_diag = True
+
+    if prepare:
+        return requests, finish_outs
+
+    resolve_fetch = td.multi_family_suggest_async(requests)
+
+    def finish():
+        outs = resolve_fetch()
+        return finish_outs(outs, diag=resolve_fetch.diag)
+
+    return finish if defer else finish()
 
 
 def suggest(
@@ -487,22 +539,117 @@ def suggest(
     ``trials.history.loss_tids`` (or a callable ``hist -> mask``) —
     restricts which completed trials feed the posterior.
     """
+    return _suggest_impl(
+        new_ids, domain, trials, seed, prior_weight, n_startup_jobs,
+        n_EI_candidates, gamma, linear_forgetting, param_locks, trial_filter,
+        device, defer=False,
+    )
+
+
+def suggest_async(
+    new_ids,
+    domain,
+    trials,
+    seed,
+    prior_weight=_default_prior_weight,
+    n_startup_jobs=_default_n_startup_jobs,
+    n_EI_candidates=_default_n_EI_candidates,
+    gamma=_default_gamma,
+    linear_forgetting=_default_linear_forgetting,
+    verbose=True,
+    param_locks=None,
+    trial_filter=None,
+    device=None,
+    pending=None,
+):
+    """:func:`suggest` launched without waiting: returns a zero-argument
+    resolver that yields exactly the docs ``suggest`` would have returned
+    for the same inputs, while the card computes in between.  The
+    random-search startup and the uncompilable-space fallback do not
+    depend on the history and are computed at once (their resolver is a
+    constant).
+
+    ``pending``: in-flight trials' ``misc["vals"]`` dicts, in completion
+    order; the fit then assumes each completed with a worst-case loss
+    (see :func:`_suggest_device`).  This is the dispatch the speculative
+    engine (:mod:`hyperopt_tpu_torch.pipeline`) overlaps with the
+    objective.  Reference: ``hyperopt_tpu/algos/tpe.py:902``."""
+    return _suggest_impl(
+        new_ids, domain, trials, seed, prior_weight, n_startup_jobs,
+        n_EI_candidates, gamma, linear_forgetting, param_locks, trial_filter,
+        device, defer=True, pending=pending,
+    )
+
+
+def suggest_prepare(
+    new_ids,
+    domain,
+    trials,
+    seed,
+    prior_weight=_default_prior_weight,
+    n_startup_jobs=_default_n_startup_jobs,
+    n_EI_candidates=_default_n_EI_candidates,
+    gamma=_default_gamma,
+    linear_forgetting=_default_linear_forgetting,
+    verbose=True,
+    param_locks=None,
+    trial_filter=None,
+    device=None,
+):
+    """One TPE suggest's request list, built but not launched.
+
+    Returns ``(requests, finish)``: ``requests`` is what
+    :func:`tpe_device.multi_family_suggest_async` takes, and
+    ``finish(outs, diag=None)`` turns the resolved per-family winners into
+    the docs :func:`suggest` would have returned.  Returns None when the
+    suggest does not reach the card (random-search startup, empty OK
+    history, uncompilable space): call :func:`suggest` then.  Several
+    studies' requests can go to the card as one batch through
+    :func:`tpe_device.multi_study_suggest_async`; each study's docs equal
+    its unbatched suggest.  Reference: ``hyperopt_tpu/algos/tpe.py:944``."""
+    return _suggest_impl(
+        new_ids, domain, trials, seed, prior_weight, n_startup_jobs,
+        n_EI_candidates, gamma, linear_forgetting, param_locks, trial_filter,
+        device, defer=False, prepare=True,
+    )
+
+
+def _suggest_impl(
+    new_ids, domain, trials, seed, prior_weight, n_startup_jobs,
+    n_EI_candidates, gamma, linear_forgetting, param_locks, trial_filter,
+    device, defer, pending=None, prepare=False,
+):
     dev = resolve_device(device)
     hist = trials.history
     # Startup gate on ALL inserted non-error trials (reference semantics:
     # ``len(trials.trials)``), not completed-OK count; random suggest also
     # while the OK history is empty (nothing to fit a posterior on).
     if len(trials.trials) < n_startup_jobs or len(hist.losses) == 0:
-        return rand.suggest(new_ids, domain, trials, seed, device=dev)
+        if prepare:
+            return None  # host-side path: nothing to batch
+        docs = rand.suggest(new_ids, domain, trials, seed, device=dev)
+        return (lambda: docs) if defer else docs
 
     if not domain.space.compiled:
+        if prepare:
+            return None
         logger.warning(
             "space not compilable (%s): tpe falling back to random suggest",
             domain.space.compile_error,
         )
-        return rand.suggest(new_ids, domain, trials, seed, device=dev)
+        docs = rand.suggest(new_ids, domain, trials, seed, device=dev)
+        return (lambda: docs) if defer else docs
 
     return _suggest_device(
         new_ids, domain, trials, hist, seed, prior_weight, n_EI_candidates,
         gamma, linear_forgetting, param_locks, trial_filter, dev,
+        defer=defer, pending=pending, prepare=prepare,
     )
+
+
+# the speculative engine finds the asynchronous variant and its validity
+# policy through these attributes, and a batching caller the prepare/finish
+# split (see hyperopt_tpu_torch.pipeline)
+suggest.async_variant = suggest_async
+suggest.speculation_policy = "tpe_quantile"
+suggest.prepare_variant = suggest_prepare

@@ -10,11 +10,22 @@ with numpy per label per suggest; here:
   **device tensors**, updated in place: an append of ``k`` completed trials
   uploads O(k) scalars, never the history.  Capacities grow in power-of-two
   buckets, so full re-uploads happen O(log N) times over a run's life.
-- :func:`multi_family_suggest` runs every distribution family of one
-  suggest — γ-split (loss ranks), below/above packing, adaptive-Parzen
-  fits, truncated-GMM candidate draw, O(candidates × components) scoring
-  (the CUDA pair-score kernel for continuous labels), per-id argmax — on
-  the device, and reads back one flat array of winners and diagnostics.
+- :func:`multi_family_suggest_async` launches every distribution family
+  of one suggest — γ-split (loss ranks), below/above packing,
+  adaptive-Parzen fits, truncated-GMM candidate draw, O(candidates ×
+  components) scoring (the CUDA pair-score kernel for continuous labels),
+  per-id argmax — on the device, copies one flat array of winners and
+  diagnostics towards the host without waiting, and returns a resolver
+  that waits for it.  :func:`multi_study_suggest_async` does the same for
+  several suggests at once, with one readback.
+- :meth:`DeviceHistory.hypothetical_append` is the speculative engine's
+  view of the history with the in-flight trials appended (worst-case
+  loss), made without touching the live buffers.
+
+Everything here runs on the card's suggest stream
+(:func:`~hyperopt_tpu_torch.device.suggest_stream`): appends are made in
+place, and stream order keeps an in-flight suggest reading the buffers as
+they were when it was launched.
 
 The γ-split semantics match ``tpe.ap_split_trials`` exactly: ranks come
 from a stable sort of the (float32) loss vector, the below set is the
@@ -31,11 +42,12 @@ from __future__ import annotations
 
 import math
 import weakref
+from functools import wraps
 
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import on_suggest_stream, resolve_device, upload
 from ..diagnostics import D_EI_TOP_K, DIAG_COLS
 from ..ops import fused_kernel
 from ..ops import gmm as gmm_ops
@@ -146,10 +158,19 @@ def _scatter_drop(buf, index, vals):
     keep = np.ones(len(vals), bool)
     for d, ix in enumerate(index):
         keep &= (ix >= 0) & (ix < buf.shape[d])
-    idx = tuple(torch.from_numpy(np.asarray(ix, np.int64)[keep]).to(buf.device)
-                for ix in index)
-    v = torch.from_numpy(np.asarray(vals)[keep]).to(device=buf.device, dtype=buf.dtype)
+    idx = tuple(upload(np.asarray(ix, np.int64)[keep], buf.device) for ix in index)
+    v = upload(np.asarray(vals)[keep], buf.device).to(buf.dtype)
     buf.index_put_(idx, v)
+
+
+def _on_stream(method):
+    """Run a ``DeviceHistory`` method on its card's suggest stream."""
+    @wraps(method)
+    def run(self, *args, **kwargs):
+        with on_suggest_stream(self.device):
+            return method(self, *args, **kwargs)
+
+    return run
 
 
 class DeviceHistory:
@@ -189,6 +210,7 @@ class DeviceHistory:
         self.full_rebuilds = 0  # O(history) re-uploads, O(log N) over a run
         self._ones = None
 
+    @_on_stream
     def keep_mask(self, mask):
         """[CAPT] bool device mask for trial_filter (all-true cached)."""
         if mask is None:
@@ -200,6 +222,7 @@ class DeviceHistory:
         return self._upload(buf)
 
     # -- sync ----------------------------------------------------------
+    @_on_stream
     def sync(self, hist):
         n = len(hist.losses)
         # O(1) steady state: _TrialsHistory bumps ``content_version`` on
@@ -239,7 +262,7 @@ class DeviceHistory:
         self._synced_hist = weakref.ref(hist)
 
     def _upload(self, arr):
-        return torch.tensor(arr, device=self.device)
+        return upload(arr, self.device)
 
     def _rebuild(self, hist):
         self.full_rebuilds += 1
@@ -258,17 +281,30 @@ class DeviceHistory:
         for fam in self.families.values():
             counts = [len(hist.idxs.get(label, ())) for label in fam.labels]
             fam.cap = parzen_ops.bucket(max(max(counts, default=0), 1))
-            obs = np.zeros((fam.L, fam.cap), np.float32)
-            pos = np.zeros((fam.L, fam.cap), np.int64)
-            for i, label in enumerate(fam.labels):
-                c = counts[i]
-                if c:
-                    obs[i, :c] = fam.to_fit_space(i, hist.vals[label])
-                    pos[i, :c] = [self._tid_row[int(t)] for t in hist.idxs[label]]
+            obs, pos, counts = self._host_family_arrays(fam, hist, fam.cap)
             fam.counts_host = counts
             fam.obs = self._upload(obs)
             fam.pos = self._upload(pos)
             fam.counts = self._upload(np.asarray(counts, np.int64))
+
+    def _host_family_arrays(self, fam, hist, cap):
+        """One family's (obs, pos, counts) host arrays rebuilt from ``hist``
+        at capacity ``cap``: the layout of a full rebuild, shared by
+        ``_rebuild`` and the hypothetical view at a bucket boundary (which
+        must equal the later real rebuild, or k=1 speculation stops
+        reproducing the serial trajectory exactly at power-of-two history
+        sizes).  Needs ``self._tid_row`` current for ``hist``."""
+        obs = np.zeros((fam.L, cap), np.float32)
+        pos = np.zeros((fam.L, cap), np.int64)
+        counts = []
+        for i, label in enumerate(fam.labels):
+            tids = hist.idxs.get(label, ())
+            c = len(tids)
+            if c:
+                obs[i, :c] = fam.to_fit_space(i, hist.vals[label])
+                pos[i, :c] = [self._tid_row[int(t)] for t in tids]
+            counts.append(c)
+        return obs, pos, counts
 
     def _append(self, hist):
         n = len(hist.losses)
@@ -309,6 +345,87 @@ class DeviceHistory:
                 _scatter_drop(fam.pos, (r, c), np.asarray(poss, np.int64))
                 fam.counts = self._upload(np.asarray(fam.counts_host, np.int64))
 
+    @_on_stream
+    def hypothetical_append(self, hist, pending_vals):
+        """A one-trial-ahead VIEW of the history: the synced buffers plus
+        the pending trials' observations, each with a worst-case ``+BIG``
+        loss: the "lands in the above set" branch prediction of the
+        speculative engine (:mod:`hyperopt_tpu_torch.pipeline`).
+
+        A pending trial's parameters are known while its objective runs;
+        only its loss is not, and the loss enters the fit only through
+        γ-split membership.  ``+BIG`` ranks after every real loss (stable
+        sort), so a suggest against this view with ``n_below`` for the
+        grown count is exactly the suggest the serial loop makes after a
+        completion that lands above.  ``pending_vals``: the trials'
+        ``misc["vals"]`` dicts, in completion-row order.
+
+        Non-destructive: the live buffers are cloned before anything is
+        scattered, and this object's host state is untouched (the next
+        real ``sync`` proceeds as if this was never called).  Returns
+        ``(losses, fam_views, keep_mask)``; ``fam_views`` maps a family
+        key to ``(obs, pos, counts)`` for the families that gained
+        observations; the others read their live buffers.  Must be
+        called with ``self`` synced to ``hist``.  Reference:
+        ``hyperopt_tpu/algos/tpe_device.py:381-487``."""
+        n0 = self._n_synced
+        n1 = n0 + len(pending_vals)
+
+        fam_extra = {}  # fam -> (rows, cols, vals, poss, new_counts)
+        overflow = n1 > self.capt
+        for fam in self.families.values():
+            rows, cols, vals, poss = [], [], [], []
+            counts = list(fam.counts_host)
+            for j, pv in enumerate(pending_vals):
+                for i, label in enumerate(fam.labels):
+                    v = pv.get(label, ())
+                    if len(v):
+                        rows.append(i)
+                        cols.append(counts[i])
+                        vals.append(float(fam.to_fit_space(i, np.asarray(v))[0]))
+                        poss.append(n0 + j)
+                        counts[i] += 1
+            if rows:
+                fam_extra[fam] = (rows, cols, vals, poss, counts)
+                if max(counts) > fam.cap:
+                    overflow = True
+
+        if overflow:
+            return self._hypothetical_rebuild(hist, pending_vals, fam_extra)
+
+        losses = self.losses.clone()
+        _scatter_drop(losses, (np.arange(n0, n1),), np.full(n1 - n0, _BIG, np.float32))
+        views = {}
+        for fam, (rows, cols, vals, poss, counts) in fam_extra.items():
+            obs, pos = fam.obs.clone(), fam.pos.clone()
+            r, c = np.asarray(rows), np.asarray(cols)
+            _scatter_drop(obs, (r, c), np.asarray(vals, np.float32))
+            _scatter_drop(pos, (r, c), np.asarray(poss, np.int64))
+            views[fam.key] = (obs, pos, self._upload(np.asarray(counts, np.int64)))
+        return losses, views, self.keep_mask(None)
+
+    def _hypothetical_rebuild(self, hist, pending_vals, fam_extra):
+        """The view of :meth:`hypothetical_append` when the grown history
+        would not fit the live buffers: built on the host at the grown
+        bucket sizes (the shapes the later real ``_rebuild`` will use) and
+        uploaded, O(history) once per power-of-two boundary."""
+        n0 = self._n_synced
+        n1 = n0 + len(pending_vals)
+        capt = parzen_ops.bucket(max(n1, 1))
+        buf = np.full(capt, _BIG, np.float32)
+        buf[:n0] = hist.losses
+        losses = self._upload(buf)
+        views = {}
+        for fam, (rows, cols, vals, poss, counts) in fam_extra.items():
+            cap = parzen_ops.bucket(max(max(counts, default=0), 1))
+            obs, pos, _ = self._host_family_arrays(fam, hist, cap)
+            obs[rows, cols] = vals
+            pos[rows, cols] = poss
+            views[fam.key] = (self._upload(obs), self._upload(pos),
+                              self._upload(np.asarray(counts, np.int64)))
+        return losses, views, self._upload(np.ones(capt, bool))
+
+    @_on_stream
     def load_numpy(self, families, losses):
         """Replace the device state with host arrays: ``families`` maps a
         family key to ``(obs, pos, counts)`` (``[L, CAP]``, ``[L, CAP]``,
@@ -597,28 +714,113 @@ def _index_family_suggest_core(
     return win, diag
 
 
-def multi_family_suggest(requests):
-    """Every family of one suggest, with one flat readback.
+def _multi_sig(requests):
+    """The static signature of one request list (kinds and statics)."""
+    return tuple((kind, tuple(sorted(st.items()))) for kind, _, st in requests)
+
+
+def multi_family_suggest_async(requests):
+    """Launch every family of one suggest on the card's suggest stream and
+    start the one flat readback, without waiting for either.
 
     ``requests``: list of ``(kind, args, statics)`` with kind "cont" or
-    "idx".  Returns ``(winners, diags)``: per family, ``[L, k]`` fit-space
-    winners and the ``[L, DIAG_COLS]`` search-health rows, as numpy.
-    (Index winners ride the f32 concat exactly: category indices are tiny
-    integers, far inside f32's 2^24 exact-integer range.)"""
-    outs = [
-        (_family_suggest_core if kind == "cont" else _index_family_suggest_core)(
-            *args, **st
+    "idx".  Returns a zero-argument resolver: it waits for the readback
+    (an event recorded after the copy into pinned host memory), splits
+    the flat array and returns the per-family ``[L, k]`` fit-space
+    winners as numpy; the ``[L, DIAG_COLS]`` search-health rows ride as
+    its ``.diag``.  (Index winners ride the f32 concat exactly: category
+    indices are tiny integers, far inside f32's 2^24 exact-integer
+    range.)  Safe against later history appends: they go on the same
+    stream, after this suggest's reads.  Reference:
+    ``hyperopt_tpu/algos/tpe_device.py:1271-1386``."""
+    dev = requests[0][1][1].device  # every request's obs lies on one device
+    with on_suggest_stream(dev):
+        outs = [
+            (_family_suggest_core if kind == "cont" else _index_family_suggest_core)(
+                *args, **st
+            )
+            for kind, args, st in requests
+        ]
+        flat_dev = torch.cat(
+            [part.to(torch.float32).reshape(-1) for win, diag in outs
+             for part in (win, diag)]
         )
-        for kind, args, st in requests
-    ]
-    flat = torch.cat(
-        [part.to(torch.float32).reshape(-1) for win, diag in outs for part in (win, diag)]
-    ).cpu().numpy()  # the one blocking readback
-    wins, diags, off = [], [], 0
-    for (win, _), (_, _, st) in zip(outs, requests):
-        L, k = win.shape[0], st["k"]
-        wins.append(flat[off: off + L * k].reshape(L, k))
-        off += L * k
-        diags.append(flat[off: off + L * DIAG_COLS].reshape(L, DIAG_COLS))
-        off += L * DIAG_COLS
-    return wins, diags
+        if flat_dev.is_cuda:
+            host = torch.empty(flat_dev.shape, dtype=torch.float32, pin_memory=True)
+            host.copy_(flat_dev, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+        else:
+            host, done = flat_dev, None
+    shapes = [(win.shape[0], st["k"]) for (win, _), (_, _, st) in zip(outs, requests)]
+
+    def resolve():
+        if done is not None:
+            done.synchronize()  # the one wait for the card
+        flat = host.numpy()
+        wins, diags, off = [], [], 0
+        for L, k in shapes:
+            wins.append(flat[off: off + L * k].reshape(L, k))
+            off += L * k
+            diags.append(flat[off: off + L * DIAG_COLS].reshape(L, DIAG_COLS))
+            off += L * DIAG_COLS
+        resolve.diag = diags
+        return wins
+
+    return resolve
+
+
+def multi_family_suggest(requests):
+    """:func:`multi_family_suggest_async`, resolved: ``(winners, diags)``,
+    per family ``[L, k]`` fit-space winners and ``[L, DIAG_COLS]`` rows."""
+    resolve = multi_family_suggest_async(requests)
+    wins = resolve()
+    return wins, resolve.diag
+
+
+def canonical_group_order(groups):
+    """The order :func:`multi_study_suggest_async` concatenates groups in:
+    sorted by the repr of each group's signature and argument shapes, as
+    the reference orders them (``tpe_device.py:1139-1154``) so that one
+    composition of studies always gives one request order."""
+    def canon_key(g):
+        return repr((
+            _multi_sig(g),
+            tuple(tuple(tuple(np.shape(a)) for a in args) for _, args, _ in g),
+        ))
+
+    return sorted(range(len(groups)), key=lambda i: canon_key(groups[i]))
+
+
+def multi_study_suggest_async(groups):
+    """Several suggests' request lists (each what one
+    :func:`multi_family_suggest_async` call takes, from any studies on
+    one card) launched back to back, in :func:`canonical_group_order`,
+    with ONE flat readback.  Returns one zero-argument resolver per group,
+    in the order of ``groups``; each yields that group's winners and
+    carries its diag rows as ``.diag``.  The wait happens once, on
+    whichever resolver is called first.  Reference:
+    ``hyperopt_tpu/algos/tpe_device.py:1389-1441``."""
+    order = canonical_group_order(groups)
+    resolve_all = multi_family_suggest_async([r for i in order for r in groups[i]])
+    cell = {}
+
+    def outs():
+        if "outs" not in cell:
+            cell["outs"] = resolve_all()
+        return cell["outs"]
+
+    spans, off = [None] * len(groups), 0
+    for i in order:
+        spans[i] = (off, off + len(groups[i]))
+        off += len(groups[i])
+
+    def group_resolver(lo, hi):
+        def resolve_group():
+            wins = outs()[lo:hi]
+            resolve_group.diag = resolve_all.diag[lo:hi]
+            return wins
+
+        return resolve_group
+
+    return [group_resolver(lo, hi) for lo, hi in spans]

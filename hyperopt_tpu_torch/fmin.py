@@ -7,10 +7,13 @@ Reference parity (SURVEY.md §2 #7): ``hyperopt/fmin.py`` —
 
 The driver is host-side orchestration by design: suggest runs on the
 device, the objective is arbitrary user Python, and this loop shuttles
-sparse trial docs between them.  The loop is strictly serial (suggest,
-then evaluate).  Keywords of ``hyperopt_tpu.fmin`` whose subsystems this
-package does not carry yet raise ``NotImplementedError`` naming the
-ROADMAP item instead of being ignored.
+sparse trial docs between them.  By default (``max_speculation=1``) the
+loop is pipelined: while the objective of trial t runs in a worker
+thread, the speculative engine (:mod:`hyperopt_tpu_torch.pipeline`)
+launches the suggest of trial t+1 on the card; ``max_speculation=0``
+keeps the strictly serial loop.  Keywords of ``hyperopt_tpu.fmin`` whose
+subsystems this package does not carry yet raise ``NotImplementedError``
+naming the ROADMAP item instead of being ignored.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import logging
 import os
 import pickle
 import sys
+import threading
 import time
 from timeit import default_timer as timer
 
@@ -40,6 +44,7 @@ from .base import (
     validate_loss_threshold,
     validate_timeout,
 )
+from .observability import SpeculationStats
 from .utils import coarse_utcnow
 
 logger = logging.getLogger(__name__)
@@ -52,10 +57,14 @@ def _not_ported(keyword, item):
     )
 
 
-def _check_unported(max_speculation, validate_space, retry_policy, fault_stats,
-                    trials_save_file):
-    if max_speculation:
-        _not_ported("max_speculation>0", "queue A item 6, pipeline.py")
+def _default_max_speculation():
+    """The speculation depth of the pipelined loop when the caller gives
+    none: ``HYPEROPT_MAX_SPECULATION``, else 1 (the reference's default,
+    ``hyperopt_tpu/fmin.py:54``).  Read at call time."""
+    return int(os.environ.get("HYPEROPT_MAX_SPECULATION", "1"))
+
+
+def _check_unported(validate_space, retry_policy, fault_stats, trials_save_file):
     if validate_space:
         _not_ported("validate_space=True", "queue A item 10, analysis/ space lint")
     if retry_policy is not None:
@@ -143,11 +152,15 @@ class FMinIter:
         fault_stats=None,
         search_stats=None,
     ):
-        _check_unported(max_speculation, False, retry_policy, fault_stats,
-                        trials_save_file)
+        _check_unported(False, retry_policy, fault_stats, trials_save_file)
         self.algo = algo
         self.domain = domain
         self.trials = trials
+        if max_speculation is None:
+            max_speculation = _default_max_speculation()
+        self.max_speculation = max_speculation
+        self.speculation_stats = SpeculationStats()
+        self._engine = None
         if asynchronous is None:
             self.asynchronous = trials.asynchronous
         else:
@@ -213,6 +226,74 @@ class FMinIter:
                     break
         self.trials.refresh()
 
+    def _serial_evaluate_pipelined(self, engine, budget):
+        """serial_evaluate with suggest/evaluate overlap: the objective of
+        each NEW trial runs in a short-lived daemon worker thread while
+        this (main) thread speculatively launches the suggest(s) of the
+        next trial(s) through ``engine`` (at most ``budget`` more
+        suggestions will be consumed this run, so speculation is capped
+        there too).  Doc mutations mirror serial_evaluate exactly; on an
+        objective exception the pending speculations are discarded and the
+        exception propagates unless ``catch_eval_exceptions``.  The worker
+        is a daemon and the main thread's join is signal-interruptible, so
+        Ctrl-C still aborts fmin mid-objective.  Reference:
+        ``hyperopt_tpu/fmin.py:291-380``."""
+        for trial in self.trials._dynamic_trials:
+            if trial["state"] != JOB_STATE_NEW:
+                continue
+            trial["state"] = JOB_STATE_RUNNING
+            now = coarse_utcnow()
+            trial["book_time"] = now
+            trial["refresh_time"] = now
+            spec = spec_from_misc(trial["misc"])
+            ctrl = Ctrl(self.trials, current_trial=trial)
+            box = {}
+
+            def _evaluate(spec=spec, ctrl=ctrl, box=box):
+                try:
+                    box["result"] = self.domain.evaluate(spec, ctrl)
+                except BaseException as e:
+                    box["error"] = e
+
+            worker = threading.Thread(target=_evaluate, name="hyperopt-eval", daemon=True)
+            worker.start()
+            try:
+                try:
+                    # overlap window: launch speculative suggests while the
+                    # objective runs; the card computes in the background
+                    engine.speculate(limit=budget)
+                except Exception:
+                    # speculation is an optimization: a failed launch must
+                    # not discard the objective's result or leave the
+                    # trial RUNNING; drop the speculations and go on
+                    # serially (the synchronous suggest raises if the card
+                    # fails again)
+                    logger.exception("speculative dispatch failed; continuing serially")
+                    engine.discard()
+            finally:
+                # even a non-Exception failure must not abandon the trial
+                worker.join()
+            if "error" in box:
+                e = box["error"]
+                if not isinstance(e, Exception):
+                    # BaseException (SystemExit, ...): serial_evaluate would
+                    # not catch it either
+                    engine.discard()
+                    raise e
+                logger.error("job exception: %s", str(e))
+                trial["state"] = JOB_STATE_ERROR
+                trial["misc"]["error"] = (str(type(e)), str(e))
+                trial["refresh_time"] = coarse_utcnow()
+                if not self.catch_eval_exceptions:
+                    engine.discard()
+                    self.trials.refresh()
+                    raise e
+            else:
+                trial["state"] = JOB_STATE_DONE
+                trial["result"] = box["result"]
+                trial["refresh_time"] = coarse_utcnow()
+        self.trials.refresh()
+
     def block_until_done(self):
         already_printed = False
         if self.asynchronous:
@@ -248,6 +329,38 @@ class FMinIter:
             unfinished_states = [JOB_STATE_NEW, JOB_STATE_RUNNING]
             return self.trials.count_by_state_unsynced(unfinished_states)
 
+        # the speculative engine (max_speculation > 0) overlaps the suggest
+        # on the card with the objective; k=0 keeps the strictly serial
+        # path below.  In the synchronous loop it engages only at queue
+        # length 1 (the default): a wider queue enqueues several ids
+        # through ONE algo call with ONE seed, which a 1-id speculation
+        # plus an (n-1)-id sync call would re-seed.  The asynchronous
+        # plane has no serial trajectory to keep and always prefetches.
+        # Ctrl-receiving objectives (pass_expr_memo_ctrl) may mutate the
+        # trials store from the worker while this thread speculates
+        # against it: those keep the serial loop.
+        engine = None
+        use_engine = (
+            self.max_speculation
+            and self.max_speculation > 0
+            and (self.asynchronous or self.max_queue_len == 1)
+            and not getattr(self.domain, "pass_expr_memo_ctrl", False)
+        )
+        if use_engine:
+            from .pipeline import SpeculativeSuggestEngine
+
+            if self._engine is None:
+                self._engine = SpeculativeSuggestEngine(
+                    algo, self.domain, trials, self.rstate,
+                    max_speculation=self.max_speculation,
+                    stats=self.speculation_stats,
+                )
+            engine = self._engine
+            if engine.policy == "strict":
+                # no declared policy: the engine never speculates, so skip
+                # the worker thread too and keep the serial loop
+                engine = None
+
         stopped = False
         initial_n_done = get_n_done()
         progress_callback = (
@@ -256,6 +369,9 @@ class FMinIter:
             else progress.no_progress_callback
         )
         with contextlib.ExitStack() as _stack:
+            if engine is not None:
+                # on every exit path, drop speculations nothing will read
+                _stack.callback(engine.discard)
             progress_ctx = _stack.enter_context(
                 progress_callback(initial=0, total=N)
             )
@@ -273,10 +389,15 @@ class FMinIter:
                     qlen < self.max_queue_len and n_queued < N and not self.is_cancelled
                 ):
                     n_to_enqueue = min(self.max_queue_len - qlen, N - n_queued)
-                    new_ids = trials.new_trial_ids(n_to_enqueue)
-                    self.trials.refresh()
-                    seed = self.rstate.integers(2 ** 31 - 1)
-                    new_trials = algo(new_ids, self.domain, trials, seed)
+                    if engine is not None:
+                        # a validated speculation when one is pending
+                        # (readback only), else computed in line
+                        new_trials, new_ids = engine.next_batch(n_to_enqueue)
+                    else:
+                        new_ids = trials.new_trial_ids(n_to_enqueue)
+                        self.trials.refresh()
+                        seed = self.rstate.integers(2 ** 31 - 1)
+                        new_trials = algo(new_ids, self.domain, trials, seed)
                     # the suggest's search-health snapshot (None for
                     # random/startup suggests), published on this thread
                     self.search_stats.record_suggest(diagnostics.last_suggest_diag())
@@ -297,8 +418,21 @@ class FMinIter:
                     break
 
                 if self.asynchronous:
+                    if engine is not None:
+                        try:
+                            # prefetch the next suggestion(s) while the
+                            # backend's workers evaluate
+                            engine.speculate(limit=N - n_queued)
+                        except Exception:
+                            logger.exception(
+                                "speculative dispatch failed; continuing "
+                                "without prefetch"
+                            )
+                            engine.discard()
                     # wait for workers to fill in the trials
                     time.sleep(self.poll_interval_secs)
+                elif engine is not None:
+                    self._serial_evaluate_pipelined(engine, budget=N - n_queued)
                 else:
                     # run the trials synchronously in this process
                     self.serial_evaluate()
@@ -361,6 +495,8 @@ class FMinIter:
             if block_until_done:
                 self.block_until_done()
             self.trials.refresh()
+            if self.verbose and engine is not None:
+                self.speculation_stats.log_summary(logging.DEBUG)
             logger.debug("Queue empty, exiting run.")
 
     def exhaust(self):
@@ -409,15 +545,20 @@ def fmin(
     each TPE suggest's EI/Parzen snapshot); by default ``FMinIter`` owns a
     private one, ``FMinIter.search_stats``.
 
-    The loop is strictly serial: ``max_speculation`` may be None or 0.
-    ``max_speculation>0``, ``validate_space=True``, ``retry_policy``,
-    ``fault_stats`` and a ``trials_save_file`` ending in ``.orbax`` raise
-    ``NotImplementedError`` (their subsystems are not ported yet).  A
-    plain ``trials_save_file`` is a pickle checkpoint the next run resumes
-    from.
+    ``max_speculation``: speculation depth ``k`` of the pipelined loop
+    (:mod:`hyperopt_tpu_torch.pipeline`); None reads
+    ``HYPEROPT_MAX_SPECULATION``, default 1.  While the objective of trial
+    t runs in a worker thread, the suggests of trials t+1..t+k are
+    launched on the card's suggest stream.  k=1 reproduces the serial
+    trajectory exactly; k=0 is the strictly serial loop.  Algorithms
+    without a ``speculation_policy`` keep the serial loop at any k.
+
+    ``validate_space=True``, ``retry_policy``, ``fault_stats`` and a
+    ``trials_save_file`` ending in ``.orbax`` raise ``NotImplementedError``
+    (their subsystems are not ported yet).  A plain ``trials_save_file`` is
+    a pickle checkpoint the next run resumes from.
     """
-    _check_unported(max_speculation, validate_space, retry_policy, fault_stats,
-                    trials_save_file)
+    _check_unported(validate_space, retry_policy, fault_stats, trials_save_file)
 
     if algo is None:
         from .algos import tpe
@@ -497,6 +638,7 @@ def fmin(
         show_progressbar=show_progressbar,
         early_stop_fn=early_stop_fn,
         trials_save_file=trials_save_file,
+        max_speculation=max_speculation,
         search_stats=search_stats,
     )
     rval.catch_eval_exceptions = catch_eval_exceptions

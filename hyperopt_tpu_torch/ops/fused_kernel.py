@@ -13,19 +13,28 @@ about it.
 them.  :func:`ei_from_partials` combines the partials into the
 ``tpe_device._ei_diag`` reductions.  :func:`resolve_fused` and
 :func:`resolve_fused_draw` read the reference's switches
-(``HYPEROPT_TPU_FUSED``, ``HYPEROPT_TPU_FUSED_DRAW``).
+(``HYPEROPT_TPU_FUSED``, ``HYPEROPT_TPU_FUSED_DRAW``);
+:func:`maybe_probe_fused` times this kernel against the unfused chain once
+per process on the card and records the verdict for :func:`resolve_fused`
+(``HYPEROPT_TPU_FUSED_PROBE=0`` skips it).
 """
 
 from __future__ import annotations
 
 import ctypes
+import logging
 import math
+import os
 
+import numpy as np
 import torch
 
+from ..device import on_suggest_stream
 from . import kernel_build
 from .gmm import draw_from_rows, draw_param_rows  # noqa: F401  (draw_param_rows: API)
-from .score import effective_scorer, env_bool, pair_score
+from .score import effective_scorer, env_bool, pair_params, pair_score
+
+logger = logging.getLogger(__name__)
 
 EPS = 1e-12
 MAX_TOP = 128  # the reference's accumulator row
@@ -213,8 +222,7 @@ _fused_measured_default = None
 
 def set_default_fused(value) -> None:
     """Record a measured verdict for the fused tier (True/False), or
-    ``None`` to clear it.  No probe sets it yet: the card's crossover has
-    not been measured."""
+    ``None`` to clear it.  :func:`maybe_probe_fused` sets it on the card."""
     global _fused_measured_default
     _fused_measured_default = None if value is None else bool(value)
 
@@ -241,3 +249,86 @@ def resolve_fused_draw() -> bool:
     differ from ``gmm_sample``'s values in the last ulp or two, while the
     default streams ``gmm_sample``'s own candidates through the kernel."""
     return bool(env_bool("HYPEROPT_TPU_FUSED_DRAW"))
+
+
+# ---------------------------------------------------------------------
+# The timing probe (reference: hyperopt_tpu/algos/tpe.py:247-309, 458-476)
+# ---------------------------------------------------------------------
+
+# the probe's record, once it has run in this process: unfused and fused
+# event ms per chain and the verdict
+_probe = None
+
+
+def probe_result():
+    """``{"unfused_ms", "fused_ms", "fused"}`` of this process's probe, or
+    None if it has not run."""
+    return None if _probe is None else dict(_probe)
+
+
+def _chain_ms(fn, iters):
+    """Event ms per call of ``fn`` on the current stream, after one call
+    that builds and warms the kernels."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def fused_timing_probe(device, k_total=8192 + 32, n_cand=2048, n_labels=4, iters=8):
+    """Time this kernel against the unfused chain it replaces (the
+    pair-score kernel, argmax, gather) at the reference's probe shapes on
+    ``device``, record the faster as the default tier
+    (:func:`set_default_fused`) and return ``(unfused_ms, fused_ms)``.  A
+    kernel that fails to build or launch raises: there is no tier to
+    demote to that would not hide the kernel."""
+    from .pair_kernel import pair_score_batched
+
+    kb = 32
+    rng = np.random.default_rng(0)
+    w = (np.abs(rng.normal(size=k_total)) + 0.1).astype(np.float32)
+    mb = rng.normal(size=kb).astype(np.float32)
+    ma = rng.normal(size=k_total - kb).astype(np.float32)
+    params = pair_params(*(torch.from_numpy(a) for a in (
+        w[:kb] / w[:kb].sum(), mb, np.ones(kb, np.float32),
+        w[kb:] / w[kb:].sum(), ma, np.ones(k_total - kb, np.float32))))
+    params = params[None].repeat(n_labels, 1, 1).contiguous().to(device)
+    z = torch.linspace(-2.0, 2.0, n_cand).repeat(n_labels, 1).contiguous().to(device)
+
+    def unfused():
+        s = pair_score_batched(z, params, kb)
+        return z.gather(1, torch.argmax(s, dim=1)[:, None])
+
+    def fused():
+        return fused_suggest(z, None, None, params, kb, 1)[0]
+
+    t_unfused = _chain_ms(unfused, iters)
+    t_fused = _chain_ms(fused, iters)
+    set_default_fused(t_fused < t_unfused)
+    logger.info("fused kernel probe: unfused %.4f ms, fused %.4f ms -> %s",
+                t_unfused, t_fused, "fused" if t_fused < t_unfused else "pallas")
+    return t_unfused, t_fused
+
+
+def maybe_probe_fused(device) -> None:
+    """Run :func:`fused_timing_probe` once per process, on the suggest
+    stream, when ``device`` is a CUDA device, unless ``HYPEROPT_TPU_FUSED``
+    is set (the pin wins outright) or ``HYPEROPT_TPU_FUSED_PROBE=0``.  A
+    probe that raises is not marked as run."""
+    global _probe
+    if (
+        _probe is not None
+        or device is None
+        or torch.device(device).type != "cuda"
+        or os.environ.get("HYPEROPT_TPU_FUSED_PROBE") == "0"
+        or os.environ.get("HYPEROPT_TPU_FUSED") is not None
+    ):
+        return
+    with on_suggest_stream(device):
+        t_unfused, t_fused = fused_timing_probe(device)
+    _probe = {"unfused_ms": t_unfused, "fused_ms": t_fused, "fused": t_fused < t_unfused}

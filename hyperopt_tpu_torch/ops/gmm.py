@@ -128,7 +128,7 @@ def draw_param_rows(w, mu, sigma, low, high):
     b = ((high[:, None] - mu) / s).clamp(-30.0, 30.0)
     Z = torch.special.ndtr(b) - torch.special.ndtr(a)
     cdf = torch.cumsum((w * Z).clamp(min=0.0), dim=-1)
-    inf = torch.tensor(float("inf"), dtype=a.dtype, device=a.device)
+    inf = torch.full((), float("inf"), dtype=a.dtype, device=a.device)
     return torch.stack([
         cdf, mu, sigma, erf_f32(a * _INV_SQRT2), erf_f32(b * _INV_SQRT2),
         torch.nextafter(a, inf), torch.nextafter(b, -inf),

@@ -94,21 +94,24 @@ def env_bool(name: str):
     return v.strip().lower() in ("1", "true", "yes", "on")
 
 
-def resolve_scorer() -> str:
-    """The scorer tier of one suggest.
+def resolve_scorer(device=None) -> str:
+    """The scorer tier of one suggest on ``device``.
 
     ``HYPEROPT_TPU_SCORER`` (one of :data:`SCORERS`) is honoured verbatim.
-    Without it the tier is ``fused`` when
+    Without it, a suggest on a CUDA device first runs the fused kernel's
+    timing probe (once per process; ``fused_kernel.maybe_probe_fused``),
+    and the tier is ``fused`` when
     :func:`~hyperopt_tpu_torch.ops.fused_kernel.resolve_fused` says so,
-    else ``pallas``.  No TPU size crossover or probe verdict carries over:
-    the card's have not been measured."""
+    else ``pallas``.  ``device`` None probes nothing.  No TPU verdict
+    carries over."""
     forced = os.environ.get("HYPEROPT_TPU_SCORER")
     if forced:
         if forced not in SCORERS:
             raise ValueError(f"HYPEROPT_TPU_SCORER={forced!r}: expected one of {SCORERS}")
         return forced
-    from .fused_kernel import resolve_fused  # imports this module
+    from .fused_kernel import maybe_probe_fused, resolve_fused  # imports this module
 
+    maybe_probe_fused(device)
     return "fused" if resolve_fused() else "pallas"
 
 

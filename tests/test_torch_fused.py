@@ -325,13 +325,13 @@ def test_fused_draw_static_only_on_fused_programs(monkeypatch, history):
     """Only fused continuous programs carry ``fused_draw``; every request
     carries the tier resolved once for the suggest."""
     captured = []
-    real = ttd.multi_family_suggest
+    real = ttd.multi_family_suggest_async
 
     def capture(requests):
         captured.append(requests)
         return real(requests)
 
-    monkeypatch.setattr(ttd, "multi_family_suggest", capture)
+    monkeypatch.setattr(ttd, "multi_family_suggest_async", capture)
     suggest_on(monkeypatch, history, {})
     suggest_on(monkeypatch, history, {"HYPEROPT_TPU_SCORER": "fused"})
     default, fused = ([st for kind, _, st in reqs if kind == "cont"] for reqs in captured)

@@ -218,3 +218,63 @@ def test_fused_top128_merges_from_global_memory(cuda):
     assert float((got[4] - plain[4]).abs().max()) <= allow
     assert float((got[2] - plain[2]).abs().max()) <= allow
     assert float((got[3].log() - plain[3].log()).abs().max()) <= 2 * allow
+
+
+def card_history(n, seed=0):
+    """``(domain, trials)``: ``n`` completed trials over a 3-label space,
+    values and losses from a seeded numpy generator."""
+    import hyperopt_tpu_torch as T
+
+    space = {"x": T.hp.uniform("x", -5, 5), "lg": T.hp.loguniform("lg", -4, 1),
+             "c": T.hp.choice("c", [0, 1, 2])}
+    rng = np.random.default_rng(seed)
+    docs = []
+    for i in range(n):
+        vals = {"x": float(rng.uniform(-5, 5)), "lg": float(np.exp(rng.uniform(-4, 1))),
+                "c": int(rng.integers(3))}
+        docs.append({"tid": i, "spec": None,
+                     "result": {"status": "ok", "loss": float(rng.standard_normal())},
+                     "misc": {"tid": i, "cmd": None, "idxs": {k: [i] for k in vals},
+                              "vals": {k: [v] for k, v in vals.items()}},
+                     "state": 2, "owner": None, "book_time": None, "refresh_time": None,
+                     "exp_key": None})
+    trials = T.Trials()
+    trials._insert_trial_docs(docs)
+    trials.refresh()
+    return T.Domain(lambda c: 0.0, space), trials, docs
+
+
+def test_suggest_async_on_card_equals_suggest(cuda):
+    import hyperopt_tpu_torch as T
+
+    domain, trials, _ = card_history(3000)
+    kw = dict(n_EI_candidates=4096)
+    for ids in ([3000], [3000, 3001]):
+        eager = T.tpe.suggest(ids, domain, trials, 17, **kw)
+        resolve = T.tpe.suggest_async(ids, domain, trials, 17, **kw)
+        assert [d["misc"]["vals"] for d in resolve()] == [d["misc"]["vals"] for d in eager]
+
+
+def test_in_flight_suggest_reads_the_history_it_was_launched_on(cuda):
+    """Stream order: a suggest launched, then one more completed trial
+    synced into the same device history (appended in place), then the
+    suggest resolved, gives the suggest of the history before the append."""
+    import hyperopt_tpu_torch as T
+    from hyperopt_tpu_torch.algos import tpe_device as td
+
+    n, kw = 10_000, dict(n_EI_candidates=8192)
+    domain, trials, docs = card_history(n)
+    T.tpe.suggest([n], domain, trials, 3, **kw)  # first sync: the full upload
+    resolve = T.tpe.suggest_async([n + 1], domain, trials, 23, **kw)
+    best = dict(docs[0], tid=n, result={"status": "ok", "loss": -1e6},
+                misc=dict(docs[0]["misc"], tid=n,
+                          idxs={k: [n] for k in docs[0]["misc"]["idxs"]}))
+    trials._insert_trial_docs([best])
+    trials.refresh()
+    dh = td.device_history_for(trials, domain.space, "cuda")
+    dh.sync(trials.history)  # in place, on the suggest stream
+    got = [d["misc"]["vals"] for d in resolve()]
+    assert dh.full_rebuilds == 1
+    _, before, _ = card_history(n)
+    ref = T.tpe.suggest([n + 1], domain, before, 23, **kw)
+    assert got == [d["misc"]["vals"] for d in ref]

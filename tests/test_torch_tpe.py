@@ -320,7 +320,9 @@ def test_fmin_resumes_from_pickle(tmp_path):
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"max_speculation": 1}, {"validate_space": True}, {"retry_policy": object()},
+    # speculation is ported; with a keyword that is not, fmin still raises
+    {"max_speculation": 2, "retry_policy": object()}, {"validate_space": True},
+    {"retry_policy": object()},
     {"fault_stats": object()}, {"trials_save_file": "run.orbax"},
 ])
 def test_unported_keywords_raise(kwargs):
