@@ -10,7 +10,8 @@ non-zero without the final line):
    this checkout, one ``nvcc`` per source started together; seconds and
    the ``-Xptxas -v`` registers, shared memory and spills.
 3. ``kernel_vs_plain``: the pair-score kernel against its plain PyTorch
-   version on the card, at the main-path shape and at edge shapes.
+   version on the card, at the main-path shape and at edge shapes (among
+   them ATPE's floor, 8 candidates, and an 8-id suggest's 65,536).
 4. ``fused_vs_plain``: the fused suggest kernel, in both draw modes, at the
    main-path shape, with k=4 segments, on the reference's shape grid and on
    ties: its winners equal the argmax over the pair-score kernel's scores
@@ -50,7 +51,29 @@ non-zero without the final line):
     ``resolve_scorer`` on the card (unfused and fused ms, the verdict),
     then an unpinned suggest at the main path's history launches the
     kernel the verdict names.
-15. ``timing``: each kernel, its plain version and one PyTorch library call
+15. ``multi_id_suggest``: ``tpe.suggest`` with 8 ids at the main path's
+    history: one pair-score launch per unquantized family (2, not 16),
+    the card's values against the CPU's from one set of uniform streams
+    over 8 seeds (>= 80% equal to rtol 1e-5, every other value a near-tie
+    under the CPU's own scorer), ms of the 8-id call against 8 single-id
+    calls, in turns.
+16. ``atpe_path``: serial ``fmin(algo=atpe.suggest)`` from the
+    10,000-trial history, 8 suggests: per suggest the meta-parameters,
+    locked labels, launches, ms and featurization ms; the meta-models
+    loaded and the load warnings; then ``tpe.suggest`` with ATPE's locks
+    and a result filter, card against CPU by the same rule.
+17. ``anneal_mix``: ``anneal.suggest`` and ``mix.suggest`` over
+    (0.5 tpe, 0.25 anneal, 0.25 rand), 16 evals each from a 1,000-trial
+    history: values inside their supports, pair-score launches in a mix
+    suggest exactly when it picked TPE.
+18. ``parallel_backend``: ``TorchTrials(parallelism=8)``'s host plane at
+    the main path's history (``tpe.suggest`` with 8192 candidates, the
+    bench objective plus a 50 ms sleep, 32 evals): no error, 32 host
+    trials, suggest calls with more than one id, 2 launches per call,
+    wall ms per trial beside the serial loop's; then its device plane
+    (``device_fn`` on the zoo's Branin, 64 evals): device batches only,
+    each loss equal to the host objective to rel 1e-4.
+19. ``timing``: each kernel, its plain version and one PyTorch library call
     computing the same function, by CUDA events at the main-path shape;
     the kernel's device ms per launch (``torch.profiler``); its bound, the
     larger of the f32 operations at the f32 peak, the issue slots and SFU
@@ -166,9 +189,10 @@ def check_bench_values(vals):
     assert vals["sigma"] > 0 and math.isfinite(vals["z"]), vals
 
 
-def prefilled_trials(T, n, seed=0):
+def prefilled_trials(T, n, seed=0, trials=None):
     """``n`` completed trials over the bench space, drawn by the port's
-    own sampler on the card."""
+    own sampler on the card, inserted into ``trials`` (a new ``Trials``
+    when None)."""
     domain = T.Domain(bench_objective, bench_space(T.hp))
     vals, _ = domain.space.sample_batch(seed, n)
     losses = np.random.default_rng(seed).standard_normal(n)
@@ -183,7 +207,7 @@ def prefilled_trials(T, n, seed=0):
             "state": T.JOB_STATE_DONE, "owner": None, "book_time": None,
             "refresh_time": None, "exp_key": None,
         })
-    trials = T.Trials()
+    trials = T.Trials() if trials is None else trials
     trials._insert_trial_docs(docs)
     trials.refresh()
     return trials
@@ -221,6 +245,10 @@ EDGE_SHAPES = {
     "padded_regions": dict(L=2, C=300, kb=33, ka=4097, real_b=26, real_a=3001),
     "dead_below": dict(L=2, C=257, kb=9, ka=300, dead_below=True),
     "l3": dict(L=3, C=1000, kb=17, ka=2049, real_a=2000),
+    # ATPE's floor: n_EI_candidates clipped to 8, a short history
+    "atpe_floor": dict(L=2, C=8, kb=3, ka=257),
+    # an 8-id suggest at the main path's history: 8 x 8192 candidates
+    "eight_ids": dict(L=2, C=65536, kb=33, ka=16385),
 }
 
 
@@ -504,29 +532,10 @@ def phase_fused_vs_plain():
 def phase_suggest_vs_cpu(T):
     """The port's suggest on the card (CUDA kernel) and on the CPU (plain
     versions) from one set of uniform streams: winners agree."""
-    from hyperopt_tpu_torch.algos import tpe as ttpe
-
-    draw = ttpe._label_uniforms
-
-    def cpu_streams(seed, n_labels, n, device):
-        return draw(seed, n_labels, n, "cpu").to(device)
-
     trials = prefilled_trials(T, 300, seed=1)
     domain = T.Domain(bench_objective, bench_space(T.hp))
-    ttpe._label_uniforms = cpu_streams
-    try:
-        pairs, close = 0, 0
-        for seed in range(5):
-            out = {}
-            for dev in ("cuda", "cpu"):
-                docs = T.tpe.suggest([300], domain, trials, seed, n_EI_candidates=512,
-                                     device=dev)
-                out[dev] = {k: v[0] for k, v in docs[0]["misc"]["vals"].items()}
-            for lb in out["cpu"]:
-                pairs += 1
-                close += bool(np.isclose(out["cuda"][lb], out["cpu"][lb], rtol=1e-5))
-    finally:
-        ttpe._label_uniforms = draw
+    pairs, close, _ = card_agrees_with_cpu(T, domain, trials, [300], range(5),
+                                           n_EI_candidates=512)
     emit("suggest_vs_cpu", pairs=pairs, equal_to_rtol_1e_5=close)
     assert close >= 0.9 * pairs, (close, pairs)
 
@@ -781,29 +790,35 @@ def training_objective(c):
     return bench_objective(c)
 
 
-class FailureLog(logging.Handler):
-    """Keeps every record of the port's loggers that reports a failure
-    (the engine's "speculative dispatch failed" and its kin)."""
+class MatchingLog(logging.Handler):
+    """Keeps every warning or error of the port's loggers whose message
+    holds ``text``."""
 
-    def __init__(self):
+    def __init__(self, text):
         super().__init__(logging.WARNING)
-        self.lines = []
+        self.text, self.lines = text, []
 
     def emit(self, record):
         msg = record.getMessage()
-        if "failed" in msg:
+        if self.text in msg:
             self.lines.append(f"{record.name}: {msg}")
 
 
 @contextlib.contextmanager
-def failure_log():
-    log = FailureLog()
+def matching_log(text):
+    log = MatchingLog(text)
     root = logging.getLogger("hyperopt_tpu_torch")
     root.addHandler(log)
     try:
         yield log
     finally:
         root.removeHandler(log)
+
+
+def failure_log():
+    """Every record that reports a failure (the engine's "speculative
+    dispatch failed" and its kin)."""
+    return matching_log("failed")
 
 
 def phase_pipelined_main_path(T, counters):
@@ -955,6 +970,359 @@ def phase_fused_probe(T, counters, study):
         os.environ["HYPEROPT_TPU_FUSED_PROBE"] = pinned
         fused_kernel.set_default_fused(None)
     return probe
+
+
+@contextlib.contextmanager
+def cpu_drawn_streams():
+    """The port's uniform streams drawn on the CPU and moved to the device
+    the suggest runs on: the card and the CPU then draw from the same
+    uniforms (``phase_suggest_vs_cpu``'s injection)."""
+    from hyperopt_tpu_torch.algos import tpe as ttpe
+
+    draw = ttpe._label_uniforms
+
+    def cpu_streams(seed, n_labels, n, device):
+        return draw(seed, n_labels, n, "cpu").to(device)
+
+    ttpe._label_uniforms = cpu_streams
+    try:
+        yield
+    finally:
+        ttpe._label_uniforms = draw
+
+
+def card_agrees_with_cpu(T, domain, trials, ids, seeds, **kw):
+    """``tpe.suggest`` on the card and on the CPU from the same streams:
+    (pairs, pairs equal to rtol 1e-5, mismatches) over every (id, label)
+    value; a mismatch is ``(seed, id index, label, card value, CPU
+    value)``."""
+    pairs, close, mismatches = 0, 0, []
+    with cpu_drawn_streams():
+        for seed in seeds:
+            card = T.tpe.suggest(ids, domain, trials, seed, **kw)
+            cpu = T.tpe.suggest(ids, domain, trials, seed, device="cpu", **kw)
+            for j, (a, b) in enumerate(zip(card, cpu)):
+                assert a["misc"]["idxs"] == b["misc"]["idxs"], (a["misc"], b["misc"])
+                check_bench_values({k: v[0] for k, v in a["misc"]["vals"].items()})
+                for lb, v in b["misc"]["vals"].items():
+                    pairs += 1
+                    if np.isclose(a["misc"]["vals"][lb][0], v[0], rtol=1e-5):
+                        close += 1
+                    else:
+                        mismatches.append((seed, j, lb, a["misc"]["vals"][lb][0], v[0]))
+    return pairs, close, mismatches
+
+
+def near_ties(T, domain, trials, ids, mismatches, **kw):
+    """Each mismatch's gap under the CPU's own plain scorer: how much
+    higher the CPU's winner scores than the card's.  The card's argmax
+    can differ from the CPU's only where that gap is at most twice the
+    per-score TOLERANCE between the kernel and the plain version (each of
+    the two scores may be off by one TOLERANCE), so a larger gap fails."""
+    rows = []
+    for seed, j, lb, card_v, cpu_v in mismatches:
+        s, s64 = (torch.from_numpy(T.tpe.plain_label_scores(
+            ids, domain, trials, seed, lb, [card_v, cpu_v], dtype=dt, **kw))
+            for dt in (torch.float32, torch.float64))
+        allow, _ = allowance(s, s64)
+        rows.append({"seed": seed, "id": j, "label": lb, "card": card_v, "cpu": cpu_v,
+                     "gap": float(s[1] - s[0]), "allow": 2 * float(allow.min())})
+    return rows
+
+
+MULTI_IDS = 8
+# The 8-id suggest's card-vs-CPU rule.  At 8 x 8192 candidates per label
+# the log-scale `lr` winners sit among near-ties that two f32 scorers
+# order differently: over these seeds an H100 agreed on 277 of 320 (id,
+# label) values, 33-36 of 40 per seed (PERF.md §6), hence the share floor
+# of 0.8; every other value must be a near-tie (``near_ties``).
+AGREEMENT_SEEDS = range(8)
+AGREEMENT_SHARE = 0.8
+
+
+def assert_agreement(pairs, close, ties):
+    """At least AGREEMENT_SHARE of the values equal to rtol 1e-5, and each
+    mismatch a near-tie within the allowance TOLERANCE implies."""
+    assert close >= AGREEMENT_SHARE * pairs, (close, pairs)
+    assert all(0.0 <= t["gap"] <= t["allow"] for t in ties), ties
+
+
+def phase_multi_id_suggest(T, counters, card, rounds=3):
+    """``tpe.suggest`` with 8 ids at the main path's history: one pair-score
+    launch per unquantized family (C = 8 x 8192 per label), the card's
+    values against the CPU's from one set of streams, ms of the 8-id call
+    against 8 single-id calls, in turns, and the pair-score kernel's event
+    ms at that shape beside its bound."""
+    from hyperopt_tpu_torch.ops.pair_kernel import pair_score_batched
+
+    trials = prefilled_trials(T, N_HISTORY)
+    domain = T.Domain(bench_objective, bench_space(T.hp))
+    ids = list(range(N_HISTORY, N_HISTORY + MULTI_IDS))
+    kw = dict(n_EI_candidates=N_CAND)
+    T.tpe.suggest(ids[:1], domain, trials, 0, **kw)  # this domain's history upload
+    torch.cuda.synchronize()
+    for c in counters:
+        c.launches = 0
+    docs = T.tpe.suggest(ids, domain, trials, 1, **kw)
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counters}
+    assert len(docs) == MULTI_IDS
+    for doc in docs:
+        check_bench_values({k: v[0] for k, v in doc["misc"]["vals"].items()})
+    t0 = time.perf_counter()
+    per_seed, ties = [], []
+    for seed in AGREEMENT_SEEDS:
+        n, c, mismatches = card_agrees_with_cpu(T, domain, trials, ids, [seed], **kw)
+        per_seed.append({"seed": seed, "pairs": n, "equal_to_rtol_1e_5": c})
+        ties += near_ties(T, domain, trials, ids, mismatches, **kw)
+    pairs = sum(r["pairs"] for r in per_seed)
+    close = sum(r["equal_to_rtol_1e_5"] for r in per_seed)
+    compare_s = time.perf_counter() - t0
+
+    def multi():
+        T.tpe.suggest(ids, domain, trials, 3, **kw)
+
+    def singles():
+        for i, tid in enumerate(ids):
+            T.tpe.suggest([tid], domain, trials, 3 + i, **kw)
+
+    times = {"multi": [], "singles": []}
+    for r in range(rounds):
+        for name in (("multi", "singles") if r % 2 == 0 else ("singles", "multi")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (multi if name == "multi" else singles)()
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    shape = EDGE_SHAPES["eight_ids"]
+    z, params = pair_case(seed=8, **shape)
+    L, C, K = shape["L"], shape["C"], shape["kb"] + shape["ka"]
+    kernel = {"ms": cuda_ms(lambda: pair_score_batched(z, params, shape["kb"]), iters=50),
+              **bound(L * C * K, 4 * (2 * L * C + 3 * L * K), card)}
+    row = {"n_ids": MULTI_IDS, "n_history": N_HISTORY, "n_EI_candidates": N_CAND,
+           "kernel_at_shape": {"shape": shape, "ms": kernel["ms"],
+                               "bound_ms": kernel["bound_ms"],
+                               "share_of_bound": kernel["bound_ms"] / kernel["ms"]},
+           "candidates_per_label": MULTI_IDS * N_CAND, "launches": launches,
+           "pairs": pairs, "equal_to_rtol_1e_5": close, "share": close / pairs,
+           "per_seed": per_seed, "near_ties": ties,
+           "worst_gap_over_allow": max([t["gap"] / t["allow"] for t in ties], default=0.0),
+           "card_vs_cpu_seconds": compare_s,
+           "multi_ms": times["multi"], "singles_ms": times["singles"],
+           "multi_ms_median": float(np.median(times["multi"])),
+           "singles_ms_median": float(np.median(times["singles"])),
+           "ms_per_suggested_trial": {
+               "multi": float(np.median(times["multi"])) / MULTI_IDS,
+               "singles": float(np.median(times["singles"])) / MULTI_IDS}}
+    emit("multi_id_suggest", **row)
+    assert launches["pair_score_batched"] == 2 and launches["fused_suggest"] == 0, launches
+    assert_agreement(pairs, close, ties)
+    return row
+
+
+def phase_atpe_path(T, counters, n_suggests=8):
+    """Serial ``fmin(algo=atpe.suggest)`` over the bench space from the
+    10,000-trial history: per suggest its meta-parameters, locked labels,
+    pair-score launches, ms, and the host ms of featurization; then
+    ``tpe.suggest`` with ATPE's locks and a result filter, card against CPU
+    from one set of streams."""
+    from hyperopt_tpu_torch.algos import atpe as tatpe
+    from hyperopt_tpu_torch.algos import tpe as ttpe
+
+    tpe_calls = []
+    real = ttpe.suggest
+
+    def recording(new_ids, domain, trials, seed, **kw):
+        tpe_calls.append(kw)
+        return real(new_ids, domain, trials, seed, **kw)
+
+    rows = []
+
+    def timed_atpe(new_ids, domain, trials, seed):
+        opt = tatpe._optimizer_for(None)
+        t0 = time.perf_counter()
+        feats, _ = opt.compute_features(domain, trials)
+        feat_ms = (time.perf_counter() - t0) * 1e3
+        meta = opt.predict_meta(feats)
+        for c in counters:
+            c.launches = 0
+        n_calls = len(tpe_calls)
+        t0 = time.perf_counter()
+        docs = T.atpe.suggest(new_ids, domain, trials, seed)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        kw = tpe_calls[-1] if len(tpe_calls) > n_calls else {}
+        rows.append({
+            "ms": ms, "featurize_ms": feat_ms,
+            "gamma": meta["gamma"], "n_EI_candidates": meta["n_EI_candidates"],
+            "prior_weight": meta["prior_weight"],
+            "filter_mode": meta["result_filtering_mode"],
+            "filter_multiplier": meta["result_filtering_multiplier"],
+            "secondary_cutoff": meta["secondary_cutoff"],
+            "locked": sorted(kw.get("param_locks") or {}),
+            "launches": {c.__name__: c.launches for c in counters}})
+        return docs
+
+    trials = prefilled_trials(T, N_HISTORY)
+    domain = T.Domain(bench_objective, bench_space(T.hp))
+    ttpe.suggest = recording
+    try:
+        with matching_log("could not load") as warned:
+            T.fmin(bench_objective, bench_space(T.hp), algo=timed_atpe,
+                   max_evals=N_HISTORY + n_suggests, trials=trials,
+                   rstate=np.random.default_rng(0), show_progressbar=False)
+    finally:
+        ttpe.suggest = real
+    assert len(trials.trials) == N_HISTORY + n_suggests and len(rows) == n_suggests
+    for doc in trials.trials[N_HISTORY:]:
+        check_bench_values({k: v[0] for k, v in doc["misc"]["vals"].items()})
+        assert math.isfinite(doc["result"]["loss"])
+    models = len(tatpe._optimizer_for(None).models)
+    # the last suggest's locks that locked any label, and a result filter
+    # that is not "none"
+    locks = next((c["param_locks"] for c in reversed(tpe_calls) if c.get("param_locks")), None)
+    mode = rows[-1]["filter_mode"] if rows[-1]["filter_mode"] != "none" else "age"
+    filt = tatpe.build_trial_filter(mode, rows[-1]["filter_multiplier"])
+    kw = dict(n_EI_candidates=rows[-1]["n_EI_candidates"], gamma=rows[-1]["gamma"],
+              prior_weight=rows[-1]["prior_weight"], param_locks=locks, trial_filter=filt)
+    pairs, close, _ = card_agrees_with_cpu(T, domain, trials, [len(trials.trials)], range(5),
+                                           **kw)
+    emit("atpe_path", n_history=N_HISTORY, n_suggests=n_suggests, suggests=rows,
+         meta_models_loaded=models, load_warnings=len(warned.lines),
+         locked_check={"locks": {k: list(v) for k, v in (locks or {}).items()},
+                       "filter": mode, "kept": int(filt(trials.history).sum()),
+                       "pairs": pairs, "equal_to_rtol_1e_5": close})
+    for r in rows:
+        assert r["launches"]["pair_score_batched"] == 2, r
+    assert locks and close >= 0.9 * pairs, (locks, close, pairs)
+    return rows
+
+
+def counted_tpe(T, calls, **kw):
+    """``partial(tpe.suggest, **kw)`` that records the ids of every call and
+    keeps the speculative engine's view of TPE (its validity policy and
+    asynchronous variant, each counted too)."""
+    def counted(fn):
+        def call(new_ids, *args, **kwargs):
+            calls.append(len(new_ids))
+            return fn(new_ids, *args, **kwargs)
+        return call
+
+    algo = counted(partial(T.tpe.suggest, **kw))
+    algo.speculation_policy = T.tpe.suggest.speculation_policy
+    algo.async_variant = counted(partial(T.tpe.suggest_async, **kw))
+    return algo
+
+
+def phase_anneal_mix(T, counters, n_history=1000, n_evals=16):
+    """anneal and then mix over (0.5 tpe, 0.25 anneal, 0.25 rand), 16
+    evals each from a 1,000-trial history: every value inside its support,
+    and pair-score launches in a mix suggest exactly when it picked TPE."""
+    rows = {}
+    trials = prefilled_trials(T, n_history)
+    for c in counters:
+        c.launches = 0
+    T.fmin(bench_objective, bench_space(T.hp), algo=T.anneal.suggest,
+           max_evals=n_history + n_evals, trials=trials, rstate=np.random.default_rng(0),
+           show_progressbar=False)
+    rows["anneal"] = {"launches": {c.__name__: c.launches for c in counters}}
+    assert rows["anneal"]["launches"]["pair_score_batched"] == 0
+    for doc in trials.trials[n_history:]:
+        check_bench_values({k: v[0] for k, v in doc["misc"]["vals"].items()})
+
+    from hyperopt_tpu_torch.ops.pair_kernel import pair_score_batched
+
+    picks = []
+
+    def tagged(name, fn):
+        def call(*args, **kw):
+            before = pair_score_batched.launches
+            docs = fn(*args, **kw)
+            torch.cuda.synchronize()
+            picks.append((name, pair_score_batched.launches - before))
+            return docs
+        return call
+
+    algo = partial(T.mix.suggest, p_suggest=[
+        (0.5, tagged("tpe", T.tpe.suggest)), (0.25, tagged("anneal", T.anneal.suggest)),
+        (0.25, tagged("rand", T.rand.suggest))])
+    trials = prefilled_trials(T, n_history)
+    for c in counters:
+        c.launches = 0
+    T.fmin(bench_objective, bench_space(T.hp), algo=algo, max_evals=n_history + n_evals,
+           trials=trials, rstate=np.random.default_rng(1), show_progressbar=False)
+    rows["mix"] = {"launches": {c.__name__: c.launches for c in counters},
+                   "picks": {n: sum(p == n for p, _ in picks) for n in ("tpe", "anneal", "rand")},
+                   "launches_by_pick": picks}
+    for doc in trials.trials[n_history:]:
+        check_bench_values({k: v[0] for k, v in doc["misc"]["vals"].items()})
+    emit("anneal_mix", n_history=n_history, n_evals=n_evals, **rows)
+    assert len(picks) == n_evals
+    assert all((n == "tpe") == (launched > 0) for n, launched in picks), picks
+
+
+def branin_torch(c):
+    x, y = c["x"], c["y"]
+    a, b, cc = 1.0, 5.1 / (4 * math.pi ** 2), 5.0 / math.pi
+    r, s, t = 6.0, 10.0, 1.0 / (8 * math.pi)
+    return a * (y - b * x ** 2 + cc * x - r) ** 2 + s * (1 - t) * torch.cos(x) + s
+
+
+def phase_parallel_backend(T, counters, serial_rows, n_evals=32, parallelism=8):
+    """TorchTrials' host plane at the main path's history (tpe.suggest with
+    8192 candidates, the bench objective plus a 50 ms sleep, 8 threads),
+    then its device plane on the zoo's 2-label Branin."""
+    from hyperopt_tpu_torch.models import domains
+
+    calls = []
+    trials = prefilled_trials(T, N_HISTORY, trials=T.TorchTrials(parallelism=parallelism))
+    for c in counters:
+        c.launches = 0
+    with failure_log() as failed:
+        t0 = time.perf_counter()
+        T.fmin(training_objective, bench_space(T.hp),
+               algo=counted_tpe(T, calls, n_EI_candidates=N_CAND),
+               max_evals=N_HISTORY + n_evals, trials=trials,
+               rstate=np.random.default_rng(0), show_progressbar=False)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = {c.__name__: c.launches for c in counters}
+    new = trials.trials[N_HISTORY:]
+    states = [d["state"] for d in new]
+    for doc in new:
+        check_bench_values({k: v[0] for k, v in doc["misc"]["vals"].items()})
+    emit("parallel_backend", plane="host", parallelism=parallelism, n_history=N_HISTORY,
+         n_evals=n_evals, n_EI_candidates=N_CAND, objective_ms=OBJECTIVE_SLEEP_S * 1e3,
+         host_trials=trials.host_trials, device_batches=trials.device_batches,
+         errored=states.count(T.JOB_STATE_ERROR), suggest_calls=len(calls),
+         ids_per_call=calls, max_ids_per_call=max(calls), launches=launches,
+         launches_per_suggest_call=launches["pair_score_batched"] / len(calls),
+         wall_ms=wall_ms, wall_ms_per_trial=wall_ms / n_evals,
+         serial_wall_ms_per_trial={k: r["wall_ms_per_trial"] for k, r in serial_rows.items()},
+         failed_log_lines=failed.lines)
+    assert len(new) == n_evals and states == [T.JOB_STATE_DONE] * n_evals, states
+    assert trials.host_trials == n_evals and trials.device_batches == 0
+    assert max(calls) > 1 and launches["pair_score_batched"] == 2 * len(calls), (calls, launches)
+    assert not failed.lines, failed.lines
+
+    d = domains.get("branin")
+    trials = T.TorchTrials(parallelism=parallelism, device_fn=branin_torch)
+    for c in counters:
+        c.launches = 0
+    T.fmin(d.fn, d.space, algo=T.tpe.suggest, max_evals=64, trials=trials,
+           rstate=np.random.default_rng(0), show_progressbar=False)
+    launches = {c.__name__: c.launches for c in counters}
+    worst = 0.0
+    for t in trials.trials:
+        assert t["state"] == T.JOB_STATE_DONE, t["misc"].get("error")
+        host = d.fn({k: v[0] for k, v in t["misc"]["vals"].items()})
+        worst = max(worst, abs(t["result"]["loss"] - host) / abs(host))
+    emit("parallel_backend", plane="device", domain="branin", parallelism=parallelism,
+         n_evals=len(trials.trials), device_batches=trials.device_batches,
+         host_trials=trials.host_trials, launches=launches, worst_rel_err_vs_host=worst,
+         tolerance="rel 1e-4 (f32 on the card, TF32 off)")
+    assert len(trials.trials) == 64 and trials.device_batches > 0 and trials.host_trials == 0
+    assert worst <= 1e-4, worst
 
 
 def exp_split():
@@ -1153,9 +1521,13 @@ def main():
         phase_profile(T, fused_runs["0"][1], fused_runs["0"][2], "fused")
     single = phase_single_label(counters)
     phase_quickstart(T, counters)
-    phase_pipelined_main_path(T, counters)
+    pipelined = phase_pipelined_main_path(T, counters)
     studies = phase_multi_study(T, counters)
     phase_fused_probe(T, counters, studies[0])
+    phase_multi_id_suggest(T, counters, card)
+    phase_atpe_path(T, counters)
+    phase_anneal_mix(T, counters)
+    phase_parallel_backend(T, counters, pipelined)
     launches = {**launches, "fused_suggest": fused_runs["0"][0]["fused_suggest"],
                 "fused_suggest_draw": fused_runs["1"][0]["fused_suggest"],
                 "pair_score_single": single["pair_score_single"]}

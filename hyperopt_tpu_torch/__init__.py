@@ -1,9 +1,11 @@
 """hyperopt_tpu_torch — the PyTorch/CUDA port of ``hyperopt_tpu``.
 
-The same ``hp.*`` search-space DSL, ``fmin`` driver, ``Trials`` store and
-``rand``/``tpe`` suggest algorithms, with TPE's numeric core on an NVIDIA
-card: the history lives in device tensors and the O(candidates × history)
-pair score runs in a CUDA kernel written for Hopper (``csrc/``).  It
+The same ``hp.*`` search-space DSL, ``fmin`` driver, ``Trials`` store,
+algorithm suite (``rand``, ``anneal``, ``tpe``, ``atpe``, ``mix``) and
+``TorchTrials`` (the analog of ``JaxTrials``), with TPE's numeric core on
+an NVIDIA card: the history lives in device tensors and the
+O(candidates × history) pair score runs in a CUDA kernel written for
+Hopper (``csrc/``).  It
 imports torch, numpy and scipy, never JAX or ``hyperopt_tpu``.
 
 Entry points run on the CUDA card unless the caller asks for the CPU, e.g.
@@ -15,7 +17,7 @@ algorithms and ``Trials`` subclassing for execution backends.
 from functools import partial
 
 from . import hp, pyll
-from .algos import rand, tpe
+from .algos import anneal, atpe, criteria, mix, rand, tpe
 from .base import (
     JOB_STATE_CANCEL,
     JOB_STATE_DONE,
@@ -51,6 +53,7 @@ from .fmin import (
     generate_trials_to_calculate,
     space_eval,
 )
+from .parallel import TorchTrials
 
 __version__ = "0.1.0"
 
@@ -77,11 +80,16 @@ __all__ = [
     "STATUS_RUNNING",
     "STATUS_STRINGS",
     "STATUS_SUSPENDED",
+    "TorchTrials",
     "Trials",
+    "anneal",
+    "atpe",
+    "criteria",
     "fmin",
     "fmin_pass_expr_memo_ctrl",
     "generate_trials_to_calculate",
     "hp",
+    "mix",
     "no_progress_loss",
     "no_progress_stop",
     "partial",

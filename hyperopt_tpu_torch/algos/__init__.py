@@ -1,5 +1,10 @@
-"""Suggest algorithms: ``rand`` and ``tpe``."""
+"""Suggest algorithms.
 
-from . import rand, tpe
+Every algorithm is a function ``suggest(new_ids, domain, trials, seed, ...)``
+returning new trial documents — the reference's plugin boundary
+(``hyperopt/base.py — Trials.fmin``, SURVEY.md §1), preserved exactly.
+"""
 
-__all__ = ["rand", "tpe"]
+from . import anneal, atpe, criteria, mix, rand, tpe
+
+__all__ = ["anneal", "atpe", "criteria", "mix", "rand", "tpe"]

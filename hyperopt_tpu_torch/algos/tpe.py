@@ -614,6 +614,52 @@ def suggest_prepare(
     )
 
 
+def plain_label_scores(new_ids, domain, trials, seed, label, values,
+                       dtype=torch.float32, **kw):
+    """The CPU's plain score (log l − log g) of raw ``values`` for
+    ``label`` at the exact inputs of ``suggest(new_ids, domain, trials,
+    seed, **kw)``: its keep mask, γ-split, lock vectors, narrowed priors
+    and Parzen fits, then the plain pair score (the quantized or
+    categorical lpdf difference where the family has one), evaluated in
+    ``dtype``.  What tells a near-tie between two scorers' winners from a
+    wrong winner; no suggest path calls it."""
+    from . import tpe_device as td
+
+    requests, _ = suggest_prepare(new_ids, domain, trials, seed, device="cpu", **kw)
+    fams = td.device_history_for(trials, domain.space, "cpu").families.values()
+    for (kind, args, st), fam in zip(requests, fams):
+        if label not in fam.labels:
+            continue
+        i = fam.labels.index(label)
+        _, obs, pos, counts, losses, keep, n_below, pw, prior, lock_c, lock_r = args
+        ranks = td._loss_ranks(losses, keep)
+        below, nb, above, na = td._split_pack(obs, pos, counts, ranks, keep, n_below,
+                                              lock_c, lock_r, st["cap_b"],
+                                              lock_fallback=kind == "idx")
+        if kind == "idx":
+            pb, pa = (torch.where(prior > 0, gmm_ops.categorical_posterior(
+                obs_, n_, prior, pw, st["upper"], st["lf"]), 0.0).to(dtype)
+                for obs_, n_ in ((below, nb), (above, na)))
+            x = torch.tensor(fam.to_fit_space(i, values), dtype=dtype)[None].repeat(fam.L, 1)
+            s = gmm_ops.categorical_lpdf(x, pb) - gmm_ops.categorical_lpdf(x, pa)
+            return s[i].numpy()
+        pm, ps, lo, hi, qq = prior.unbind(dim=1)
+        B = [t.to(dtype) for t in parzen_ops.adaptive_parzen_normal_padded(
+            below, nb, pw, pm, ps, st["lf"])]
+        A = [t.to(dtype) for t in parzen_ops.adaptive_parzen_normal_padded(
+            above, na, pw, pm, ps, st["lf"])]
+        x = torch.tensor([values], dtype=torch.float32).repeat(fam.L, 1).to(dtype)
+        if st["quantized"]:
+            lim = [t.to(dtype) for t in (lo, hi, qq)]
+            s = (gmm_ops.gmm_lpdf(x, *B, *lim, st["log_scale"], True)
+                 - gmm_ops.gmm_lpdf(x, *A, *lim, st["log_scale"], True))
+        else:
+            z = torch.log(x) if st["log_scale"] else x
+            s = pair_score(z, pair_params(*B, *A), B[0].shape[1])
+        return s[i].numpy()
+    raise KeyError(label)
+
+
 def _suggest_impl(
     new_ids, domain, trials, seed, prior_weight, n_startup_jobs,
     n_EI_candidates, gamma, linear_forgetting, param_locks, trial_filter,

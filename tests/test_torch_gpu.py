@@ -278,3 +278,50 @@ def test_in_flight_suggest_reads_the_history_it_was_launched_on(cuda):
     _, before, _ = card_history(n)
     ref = T.tpe.suggest([n + 1], domain, before, 23, **kw)
     assert got == [d["misc"]["vals"] for d in ref]
+
+
+def test_eight_id_suggest_on_card_agrees_with_cpu(cuda, monkeypatch):
+    """An 8-id suggest (one pair-score launch per unquantized family, over
+    8 × 4096 candidates per label, not one per id) over bench.py's space at
+    a 3000-trial history, on the card and on the CPU from one set of
+    uniform streams, held to ``chip_smoke``'s rule for k-id suggests: at
+    least ``AGREEMENT_SHARE`` of the (id, label) values equal to rtol 1e-5,
+    each other one a near-tie within twice the kernel's TOLERANCE under
+    the CPU's own scorer."""
+    import chip_smoke as cs
+    import hyperopt_tpu_torch as T
+
+    monkeypatch.setenv("HYPEROPT_TPU_SCORER", "pallas")  # no probe: the pair-score kernel
+    trials = cs.prefilled_trials(T, 3000)
+    domain = T.Domain(cs.bench_objective, cs.bench_space(T.hp))
+    ids = list(range(3000, 3008))
+    kw = dict(n_EI_candidates=4096)
+    seeds = range(3)
+    before = pair_score_batched.launches
+    pairs, close, mismatches = cs.card_agrees_with_cpu(T, domain, trials, ids, seeds, **kw)
+    assert pair_score_batched.launches == before + 2 * len(seeds)  # lr+sigma; momentum+z
+    cs.assert_agreement(pairs, close, cs.near_ties(T, domain, trials, ids, mismatches, **kw))
+
+
+def test_torch_trials_device_plane_on_card(cuda):
+    """TorchTrials' device plane on the card: every claimed batch is one
+    vmapped call (no host thread), each loss equal to the host objective to
+    rel 1e-4 (f32 on the card, TF32 off)."""
+    import hyperopt_tpu_torch as T
+    from hyperopt_tpu_torch.models import domains
+
+    def branin_torch(c):
+        x, y = c["x"], c["y"]
+        a, b, cc = 1.0, 5.1 / (4 * np.pi ** 2), 5.0 / np.pi
+        r, s, t = 6.0, 10.0, 1.0 / (8 * np.pi)
+        return a * (y - b * x ** 2 + cc * x - r) ** 2 + s * (1 - t) * torch.cos(x) + s
+
+    d = domains.get("branin")
+    trials = T.TorchTrials(parallelism=8, device_fn=branin_torch)
+    T.fmin(d.fn, d.space, algo=T.tpe.suggest, max_evals=40, trials=trials,
+           rstate=np.random.default_rng(0), show_progressbar=False, return_argmin=False)
+    assert len(trials) == 40 and trials.device_batches > 0 and trials.host_trials == 0
+    for t in trials.trials:
+        assert t["state"] == T.JOB_STATE_DONE
+        cfg = {k: v[0] for k, v in t["misc"]["vals"].items()}
+        assert t["result"]["loss"] == pytest.approx(d.fn(cfg), rel=1e-4)

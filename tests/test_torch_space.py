@@ -180,6 +180,10 @@ def test_import_hygiene():
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'hyperopt_tpu' or m.startswith('hyperopt_tpu.')]\n"
         "assert not bad, bad\n"
+        "need = ['hyperopt_tpu_torch.' + m for m in ('rdists', 'algos.algobase',\n"
+        "        'algos.anneal', 'algos.criteria', 'algos.mix', 'algos.atpe',\n"
+        "        'models.domains', 'parallel.torch_trials')]\n"
+        "assert all(m in sys.modules for m in need), need\n"
         "print(sum(m.startswith('hyperopt_tpu_torch') for m in sys.modules))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
