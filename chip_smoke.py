@@ -73,7 +73,21 @@ non-zero without the final line):
     wall ms per trial beside the serial loop's; then its device plane
     (``device_fn`` on the zoo's Branin, 64 evals): device batches only,
     each loss equal to the host objective to rel 1e-4.
-19. ``timing``: each kernel, its plain version and one PyTorch library call
+19. ``file_trials``: ``FileTrials`` at the main path's history (a
+    segment-log queue, one group commit) with 4 worker processes
+    (``python -m hyperopt_tpu_torch.parallel.worker``): 32 trials of the
+    bench objective plus a 50 ms sleep through fmin's asynchronous loop
+    (``max_queue_len=4``; at the queue's 0.25 s poll, then at 0.02 s), 2
+    pair-score launches per suggest call, owners
+    from at least 2 processes, the fastqueue library loaded; wall ms per
+    trial beside ``parallel_backend``'s and the serial loop's, ms of one
+    ``refresh`` and one state count, the workers' start-up seconds.  Then
+    a worker SIGKILLed while it holds a lease (2 s TTL): the reaper
+    re-queues its trial and another worker finishes it at attempt 2.
+    Then a fresh ``FileTrials`` reads the queue back and a second
+    ``fmin`` continues it; the workers exit 0 on SIGTERM, none having
+    initialised CUDA.
+20. ``timing``: each kernel, its plain version and one PyTorch library call
     computing the same function, by CUDA events at the main-path shape;
     the kernel's device ms per launch (``torch.profiler``); its bound, the
     larger of the f32 operations at the f32 peak, the issue slots and SFU
@@ -95,6 +109,7 @@ import math
 import os
 import re
 import subprocess
+import threading
 import sys
 import time
 from functools import partial
@@ -991,15 +1006,17 @@ def cpu_drawn_streams():
         ttpe._label_uniforms = draw
 
 
-def card_agrees_with_cpu(T, domain, trials, ids, seeds, **kw):
+def card_agrees_with_cpu(T, domain, trials, ids, seeds, cards=None, **kw):
     """``tpe.suggest`` on the card and on the CPU from the same streams:
     (pairs, pairs equal to rtol 1e-5, mismatches) over every (id, label)
     value; a mismatch is ``(seed, id index, label, card value, CPU
-    value)``."""
+    value)``.  ``cards``, a list, receives the card's docs of each seed."""
     pairs, close, mismatches = 0, 0, []
     with cpu_drawn_streams():
         for seed in seeds:
             card = T.tpe.suggest(ids, domain, trials, seed, **kw)
+            if cards is not None:
+                cards.append(card)
             cpu = T.tpe.suggest(ids, domain, trials, seed, device="cpu", **kw)
             for j, (a, b) in enumerate(zip(card, cpu)):
                 assert a["misc"]["idxs"] == b["misc"]["idxs"], (a["misc"], b["misc"])
@@ -1042,9 +1059,17 @@ AGREEMENT_SHARE = 0.8
 
 def assert_agreement(pairs, close, ties):
     """At least AGREEMENT_SHARE of the values equal to rtol 1e-5, and each
-    mismatch a near-tie within the allowance TOLERANCE implies."""
-    assert close >= AGREEMENT_SHARE * pairs, (close, pairs)
-    assert all(0.0 <= t["gap"] <= t["allow"] for t in ties), ties
+    mismatch a near-tie within the allowance TOLERANCE implies; on failure
+    the message carries the share, the mismatches by label and the ones
+    outside the allowance."""
+    by_label = {}
+    for t in ties:
+        by_label[t["label"]] = by_label.get(t["label"], 0) + 1
+    outside = [t for t in ties if not 0.0 <= t["gap"] <= t["allow"]]
+    assert close >= AGREEMENT_SHARE * pairs and not outside, dict(
+        close=close, pairs=pairs, share=close / pairs, mismatches_by_label=by_label,
+        worst_gap_over_allowance=max((t["gap"] / t["allow"] for t in ties), default=0.0),
+        outside_allowance=outside)
 
 
 def phase_multi_id_suggest(T, counters, card, rounds=3):
@@ -1323,6 +1348,275 @@ def phase_parallel_backend(T, counters, serial_rows, n_evals=32, parallelism=8):
          tolerance="rel 1e-4 (f32 on the card, TF32 off)")
     assert len(trials.trials) == 64 and trials.device_batches > 0 and trials.host_trials == 0
     assert worst <= 1e-4, worst
+    return wall_ms / n_evals
+
+
+LEASE_OBJECTIVE_S = 1.0  # long enough that a kill lands while a lease is held
+
+
+def lease_objective(c):
+    time.sleep(LEASE_OBJECTIVE_S)
+    return bench_objective(c)
+
+
+class QueueWorkers:
+    """``n`` processes of ``python -m hyperopt_tpu_torch.parallel.worker``
+    on one queue, each logging to its own file.  The objective's module
+    (``chip_smoke``) is found through an absolute ``PYTHONPATH``: each
+    trial runs inside the worker's workdir."""
+
+    def __init__(self, qdir, n):
+        root = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(
+            [root] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+        self.logs = [os.path.join(qdir, f"worker{i}.log") for i in range(n)]
+        self.t0 = time.perf_counter()
+        self.procs = []
+        for log in self.logs:
+            with open(log, "w") as f:
+                self.procs.append(subprocess.Popen(
+                    [sys.executable, "-m", "hyperopt_tpu_torch.parallel.worker",
+                     "--queue", qdir, "--poll-interval", "0.02", "--reserve-timeout", "60"],
+                    env=env, cwd=root, stdout=f, stderr=subprocess.STDOUT))
+        self.killed = set()
+
+    def text(self, i):
+        with open(self.logs[i]) as f:
+            return f.read()
+
+    def wait_ready(self, timeout=120):
+        """Seconds from the start to each worker's readiness line (its
+        signal handlers installed, its queue handle open)."""
+        ready = {}
+        deadline = time.monotonic() + timeout
+        while len(ready) < len(self.procs):
+            for i, proc in enumerate(self.procs):
+                if i not in ready and "ready on" in self.text(i):
+                    ready[i] = time.perf_counter() - self.t0
+                assert proc.poll() is None, (i, self.text(i))
+            assert time.monotonic() < deadline, [self.text(i) for i in range(len(self.procs))]
+            time.sleep(0.02)
+        return [ready[i] for i in range(len(self.procs))]
+
+    def pid_of(self, owner):
+        return int(str(owner).rsplit(":", 1)[1])
+
+    def kill_lease_holder(self, jobs, lease_ttl, max_age_s=0.3, timeout=60):
+        """SIGKILL a worker mid-objective: one holding a lease granted in
+        the last ``max_age_s`` and renewed under ``lease_ttl`` (a worker
+        grants its first lease after a policy change with the TTL it had,
+        and adopts the policy's at its first heartbeat); returns (tid,
+        owner)."""
+        live = {p.pid: p for p in self.procs if p.poll() is None}
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            for name in sorted(os.listdir(os.path.join(jobs.root, "leases"))):
+                if not name.endswith(".lease"):
+                    continue
+                tid = int(name.split(".")[0])
+                lease = jobs.read_lease(tid)  # None: released or torn meanwhile
+                if lease is None:
+                    continue
+                pid = self.pid_of(lease["owner"])
+                now = time.time()
+                if (pid in live and now - lease["granted_at"] < max_age_s
+                        and lease["expires_at"] - now <= lease_ttl):
+                    os.kill(pid, 9)
+                    live[pid].wait(timeout=30)
+                    self.killed.add(pid)
+                    return tid, lease["owner"]
+            time.sleep(0.01)
+        raise AssertionError("no worker took a lease to kill")
+
+    def stop(self):
+        """SIGTERM every live worker; each finishes its trial and exits 0.
+        Returns {pid: (exit code, cuda initialized)}."""
+        out = {}
+        for i, proc in enumerate(self.procs):
+            if proc.pid in self.killed:
+                continue
+            proc.terminate()
+            rc = proc.wait(timeout=60)
+            m = re.search(r"cuda initialized: (\w+)", self.text(i))
+            out[proc.pid] = (rc, m.group(1) if m else None)
+        return out
+
+    def close(self):
+        for proc in self.procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+
+
+def phase_file_trials(T, counters, serial_rows, parallel_ms_per_trial, n_evals=32,
+                      n_workers=4, n_lease=6, n_resume=4):
+    """``FileTrials`` with 4 out-of-process workers at the main path's
+    history: (a) 32 trials through fmin's asynchronous loop with the
+    speculative engine, at the queue's poll interval and at 0.02 s; (b) one worker SIGKILLed while it holds a lease
+    under a 2 s lease TTL, the lease reaper re-queues its trial and
+    another worker finishes it; (c) a fresh ``FileTrials`` reads the
+    queue back and a second ``fmin`` continues it."""
+    import shutil
+    import tempfile
+
+    import chip_smoke as cs  # the objectives pickle as chip_smoke.<name>
+    from hyperopt_tpu_torch import native
+    from hyperopt_tpu_torch.parallel.file_trials import FileJobs
+    from hyperopt_tpu_torch.resilience import RetryPolicy
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(root, "build"), exist_ok=True)
+    qdir = tempfile.mkdtemp(prefix="file_trials_", dir=os.path.join(root, "build"))
+    workers = None
+    try:
+        # the native scan of the legacy layout, built on this machine
+        assert native.load_fastqueue() is not None, "fastqueue did not build or load"
+        doc_q = FileJobs(os.path.join(qdir, "doc_layout"), backend="doc")
+        for tid in range(64):
+            doc_q.insert({"tid": tid, "state": tid % 3, "misc": {"tid": tid}})
+        scan = native.count_states(os.path.join(doc_q.root, "trials"))
+        assert scan is not None and scan[0][:3] == [22, 21, 21], scan
+
+        # (a) the main path on FileTrials
+        q = os.path.join(qdir, "q")
+        t0 = time.perf_counter()
+        filled = T.FileTrials(q)
+        # the history's ids come from the queue's counter, as a driver's do
+        assert filled.new_trial_ids(N_HISTORY) == list(range(N_HISTORY))
+        prefilled_trials(T, N_HISTORY, trials=filled)
+        prefill_s = time.perf_counter() - t0
+        assert T.FileTrials(q).jobs.backend == "segment"
+        workers = QueueWorkers(q, n_workers)
+        startup_s = workers.wait_ready()
+        # at FileTrials' own poll interval (0.25 s), then at TorchTrials'
+        # (0.02 s): the driver's sleep between rounds against the rest
+        for poll in (None, 0.02):
+            trials = T.FileTrials(q)
+            n0 = len(trials)
+            calls = []
+            it = T.FMinIter(counted_tpe(T, calls, n_EI_candidates=N_CAND),
+                            T.Domain(cs.training_objective, bench_space(T.hp)), trials,
+                            rstate=np.random.default_rng(0), max_evals=n0 + n_evals,
+                            max_queue_len=4, show_progressbar=False, poll_interval_secs=poll)
+            for c in counters:
+                c.launches = 0
+            with failure_log() as failed:
+                t0 = time.perf_counter()
+                it.exhaust()
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            launches = {c.__name__: c.launches for c in counters}
+            new = [d for d in trials._dynamic_trials if d["tid"] >= n0]
+            owners = {d["owner"] for d in new}
+            t0 = time.perf_counter()
+            trials.refresh()
+            refresh_ms = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            n_unfinished = trials.count_by_state_unsynced(
+                [T.JOB_STATE_NEW, T.JOB_STATE_RUNNING])
+            count_ms = (time.perf_counter() - t0) * 1e3
+            emit("file_trials", part="main_path", backend=trials.jobs.backend,
+                 n_history=n0, n_evals=n_evals, n_EI_candidates=N_CAND,
+                 n_workers=n_workers, max_queue_len=4, objective_ms=OBJECTIVE_SLEEP_S * 1e3,
+                 poll_interval_s=it.poll_interval_secs, prefill_s=prefill_s,
+                 worker_startup_s=startup_s, wall_ms=wall_ms,
+                 wall_ms_per_trial=wall_ms / n_evals,
+                 parallel_backend_wall_ms_per_trial=parallel_ms_per_trial,
+                 serial_wall_ms_per_trial={k: r["wall_ms_per_trial"]
+                                           for k, r in serial_rows.items()},
+                 suggest_calls=len(calls), ids_per_call=calls, launches=launches,
+                 launches_per_suggest_call=launches["pair_score_batched"] / len(calls),
+                 n_trials=len(trials._dynamic_trials), refresh_ms=refresh_ms,
+                 count_by_state_unsynced_ms=count_ms, worker_processes=len(owners),
+                 speculation=it.speculation_stats.summary(),
+                 faults=it.fault_stats.summary(), fastqueue_loaded=True,
+                 failed_log_lines=failed.lines)
+            assert len(new) == n_evals, len(new)
+            assert [d["state"] for d in new] == [T.JOB_STATE_DONE] * n_evals
+            for doc in new:
+                check_bench_values({k: v[0] for k, v in doc["misc"]["vals"].items()})
+                assert math.isfinite(doc["result"]["loss"])
+            assert len(owners) >= 2, owners
+            assert launches["pair_score_batched"] == 2 * len(calls), (calls, launches)
+            assert launches["fused_suggest"] == 0, launches
+            assert n_unfinished == 0
+            assert not failed.lines, failed.lines
+
+        # (b) kill a lease holder; the reaper re-queues, another worker finishes
+        del trials.attachments["FMinIter_Domain"]  # this part's objective
+        n_before = len(trials._dynamic_trials)
+        stats = T.observability.FaultStats()
+        policy = RetryPolicy(max_attempts=3, backoff_base=0.1, lease_ttl=2.0)
+        it = T.FMinIter(partial(T.tpe.suggest, n_EI_candidates=N_CAND),
+                        T.Domain(cs.lease_objective, bench_space(T.hp)), trials,
+                        rstate=np.random.default_rng(1), max_evals=n_before + n_lease,
+                        max_queue_len=3, show_progressbar=False, retry_policy=policy,
+                        fault_stats=stats)
+        box = {}
+
+        def kill():
+            try:
+                box["killed"] = workers.kill_lease_holder(trials.jobs, policy.lease_ttl)
+            except BaseException as e:  # read below
+                box["error"] = e
+
+        killer = threading.Thread(target=kill, daemon=True)
+        with failure_log() as failed:
+            t0 = time.perf_counter()
+            killer.start()
+            it.exhaust()
+            killer.join(timeout=60)
+            lease_wall_s = time.perf_counter() - t0
+        assert "error" not in box, box.get("error")
+        tid, owner = box["killed"]
+        trials.refresh()
+        doc = trials.jobs.read_doc(tid)
+        new = [d for d in trials._dynamic_trials if d["tid"] >= n_before]
+        emit("file_trials", part="kill_and_recover", lease_ttl_s=policy.lease_ttl,
+             objective_s=LEASE_OBJECTIVE_S, n_evals=n_lease, killed_tid=tid,
+             killed_owner=owner, finished_by=doc["owner"], attempts=doc["misc"]["attempts"],
+             faults=stats.summary(), wall_s=lease_wall_s, failed_log_lines=failed.lines)
+        assert doc["state"] == T.JOB_STATE_DONE and doc["misc"]["attempts"] == 2, doc
+        assert doc["owner"] != owner, (doc["owner"], owner)
+        assert stats.get("lease_expired") >= 1 and stats.get("lease_reclaimed") >= 1
+        assert stats.get("lease_quarantined") == 0, stats.summary()
+        assert len(new) == n_lease and all(d["state"] == T.JOB_STATE_DONE for d in new)
+        assert not failed.lines, failed.lines
+
+        # (c) resume: a fresh handle reads everything; a second fmin continues
+        reopened = T.FileTrials(q)
+        assert ({d["tid"]: d for d in reopened._dynamic_trials}
+                == {d["tid"]: d for d in trials._dynamic_trials})
+        n_left = len(reopened)
+        del reopened.attachments["FMinIter_Domain"]
+        t0 = time.perf_counter()
+        T.fmin(cs.training_objective, bench_space(T.hp),
+               algo=partial(T.tpe.suggest, n_EI_candidates=N_CAND),
+               max_evals=n_left + n_resume, trials=reopened, max_queue_len=4,
+               rstate=np.random.default_rng(2), show_progressbar=False)
+        resume_wall_s = time.perf_counter() - t0
+        reopened.refresh()
+        tids = sorted(d["tid"] for d in reopened._dynamic_trials)
+        exits = workers.stop()
+        logs = [workers.text(i) for i in range(n_workers)]
+        bad_lines = [ln for text in logs for ln in text.splitlines()
+                     if "Traceback" in ln or " failed: " in ln]
+        emit("file_trials", part="resume", n_before=n_left, n_after=len(reopened),
+             first_new_tid=tids[n_left], wall_s=resume_wall_s,
+             worker_exits={str(k): v for k, v in exits.items()},
+             worker_error_lines=bad_lines, phase_s=time.perf_counter() - t_phase)
+        assert len(reopened) == n_left + n_resume
+        assert all(d["state"] == T.JOB_STATE_DONE for d in reopened._dynamic_trials)
+        assert tids[n_left] > max(tids[:n_left]) and len(set(tids)) == len(tids)
+        assert len(exits) == n_workers - 1
+        assert all(v == (0, "False") for v in exits.values()), exits
+        assert not bad_lines, bad_lines
+    finally:
+        if workers is not None:
+            workers.close()
+        shutil.rmtree(qdir, ignore_errors=True)
 
 
 def exp_split():
@@ -1527,7 +1821,8 @@ def main():
     phase_multi_id_suggest(T, counters, card)
     phase_atpe_path(T, counters)
     phase_anneal_mix(T, counters)
-    phase_parallel_backend(T, counters, pipelined)
+    parallel_ms = phase_parallel_backend(T, counters, pipelined)
+    phase_file_trials(T, counters, pipelined, parallel_ms)
     launches = {**launches, "fused_suggest": fused_runs["0"][0]["fused_suggest"],
                 "fused_suggest_draw": fused_runs["1"][0]["fused_suggest"],
                 "pair_score_single": single["pair_score_single"]}

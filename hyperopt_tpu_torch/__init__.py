@@ -2,7 +2,9 @@
 
 The same ``hp.*`` search-space DSL, ``fmin`` driver, ``Trials`` store,
 algorithm suite (``rand``, ``anneal``, ``tpe``, ``atpe``, ``mix``) and
-``TorchTrials`` (the analog of ``JaxTrials``), with TPE's numeric core on
+``TorchTrials`` (the analog of ``JaxTrials``), ``FileTrials`` (the
+durable multi-process queue, served by ``hyperopt-tpu-torch-worker``),
+with TPE's numeric core on
 an NVIDIA card: the history lives in device tensors and the
 O(candidates × history) pair score runs in a CUDA kernel written for
 Hopper (``csrc/``).  It
@@ -53,7 +55,43 @@ from .fmin import (
     generate_trials_to_calculate,
     space_eval,
 )
-from .parallel import TorchTrials
+from .parallel import FileTrials, TorchTrials
+
+# migration stubs for reference-hyperopt users: the Mongo/Spark backends
+# are delivered by analogs, not ports.  Real (but unconstructable)
+# classes, not module __getattr__, because the common migration form
+# `from hyperopt import MongoTrials` swallows AttributeError into a bare
+# ImportError and would lose the guidance.
+
+
+class MongoTrials:
+    """Not provided — use :class:`FileTrials`.
+
+    The durable multi-worker queue is FileTrials (shared-filesystem
+    analog of the reference's Mongo backend; workers run
+    ``hyperopt-tpu-torch-worker --queue DIR``)."""
+
+    def __init__(self, *a, **kw):
+        raise NotImplementedError(
+            "hyperopt_tpu_torch has no MongoTrials: use FileTrials(queue_dir) "
+            "— the durable shared-filesystem work queue (workers: "
+            "`hyperopt-tpu-torch-worker --queue DIR`)."
+        )
+
+
+class SparkTrials:
+    """Not provided — use :class:`TorchTrials`.
+
+    Concurrent trial execution is TorchTrials(parallelism=N) (thread
+    dispatcher + optional vectorized evaluation on the card)."""
+
+    def __init__(self, *a, **kw):
+        raise NotImplementedError(
+            "hyperopt_tpu_torch has no SparkTrials: use "
+            "TorchTrials(parallelism=N) — concurrent trials with an optional "
+            "batch plane on the card."
+        )
+
 
 __version__ = "0.1.0"
 
@@ -64,6 +102,7 @@ __all__ = [
     "Domain",
     "DuplicateLabel",
     "FMinIter",
+    "FileTrials",
     "InvalidLoss",
     "InvalidResultStatus",
     "InvalidSpaceError",
@@ -74,12 +113,14 @@ __all__ = [
     "JOB_STATE_ERROR",
     "JOB_STATE_NEW",
     "JOB_STATE_RUNNING",
+    "MongoTrials",
     "STATUS_FAIL",
     "STATUS_NEW",
     "STATUS_OK",
     "STATUS_RUNNING",
     "STATUS_STRINGS",
     "STATUS_SUSPENDED",
+    "SparkTrials",
     "TorchTrials",
     "Trials",
     "anneal",

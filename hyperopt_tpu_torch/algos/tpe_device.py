@@ -719,6 +719,15 @@ def _multi_sig(requests):
     return tuple((kind, tuple(sorted(st.items()))) for kind, _, st in requests)
 
 
+# Observer hook (the chaos harness's device-error site,
+# ``resilience.chaos``).  Empty by default: the only overhead is a
+# truthiness check.  Each observer fires on the launching thread once per
+# dispatch with the raw request list, before any launch; an exception it
+# raises fails the dispatch.  Reference: ``hyperopt_tpu/algos/
+# tpe_device.py:1053`` (fired at ``:1289``).
+_suggest_observers = []
+
+
 def multi_family_suggest_async(requests):
     """Launch every family of one suggest on the card's suggest stream and
     start the one flat readback, without waiting for either.
@@ -733,6 +742,9 @@ def multi_family_suggest_async(requests):
     range.)  Safe against later history appends: they go on the same
     stream, after this suggest's reads.  Reference:
     ``hyperopt_tpu/algos/tpe_device.py:1271-1386``."""
+    if _suggest_observers:
+        for obs in list(_suggest_observers):
+            obs(requests)
     dev = requests[0][1][1].device  # every request's obs lies on one device
     with on_suggest_stream(dev):
         outs = [

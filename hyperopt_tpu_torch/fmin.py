@@ -11,9 +11,12 @@ sparse trial docs between them.  By default (``max_speculation=1``) the
 loop is pipelined: while the objective of trial t runs in a worker
 thread, the speculative engine (:mod:`hyperopt_tpu_torch.pipeline`)
 launches the suggest of trial t+1 on the card; ``max_speculation=0``
-keeps the strictly serial loop.  Keywords of ``hyperopt_tpu.fmin`` whose
-subsystems this package does not carry yet raise ``NotImplementedError``
-naming the ROADMAP item instead of being ignored.
+keeps the strictly serial loop.  With an asynchronous durable queue
+(``FileTrials``) the loop runs a heartbeat-lease reaper for the whole
+run and publishes its retry policy to the workers.  Keywords of
+``hyperopt_tpu.fmin`` whose subsystems this package does not carry yet
+raise ``NotImplementedError`` naming the ROADMAP item instead of being
+ignored.
 """
 
 from __future__ import annotations
@@ -44,7 +47,8 @@ from .base import (
     validate_loss_threshold,
     validate_timeout,
 )
-from .observability import SpeculationStats
+from .observability import FaultStats, SpeculationStats
+from .resilience.retry import TrialQuarantined, execute_with_retry
 from .utils import coarse_utcnow
 
 logger = logging.getLogger(__name__)
@@ -64,13 +68,9 @@ def _default_max_speculation():
     return int(os.environ.get("HYPEROPT_MAX_SPECULATION", "1"))
 
 
-def _check_unported(validate_space, retry_policy, fault_stats, trials_save_file):
+def _check_unported(validate_space, trials_save_file):
     if validate_space:
         _not_ported("validate_space=True", "queue A item 10, analysis/ space lint")
-    if retry_policy is not None:
-        _not_ported("retry_policy", "queue A item 8, resilience/retry.py")
-    if fault_stats is not None:
-        _not_ported("fault_stats", "queue A item 8, DeviceRecovery and FaultStats")
     if str(trials_save_file).endswith(".orbax"):
         _not_ported("trials_save_file='*.orbax'", "queue A item 6, checkpoint.py")
 
@@ -152,14 +152,16 @@ class FMinIter:
         fault_stats=None,
         search_stats=None,
     ):
-        _check_unported(False, retry_policy, fault_stats, trials_save_file)
+        _check_unported(False, trials_save_file)
         self.algo = algo
         self.domain = domain
         self.trials = trials
+        self.retry_policy = retry_policy
         if max_speculation is None:
             max_speculation = _default_max_speculation()
         self.max_speculation = max_speculation
         self.speculation_stats = SpeculationStats()
+        self.fault_stats = fault_stats if fault_stats is not None else FaultStats()
         self._engine = None
         if asynchronous is None:
             self.asynchronous = trials.asynchronous
@@ -185,19 +187,85 @@ class FMinIter:
             # keywords; other algos get the TPE default
             n_startup = getattr(algo, "keywords", None) or {}
             search_stats = diagnostics.SearchStats(
-                n_startup_jobs=int(n_startup.get("n_startup_jobs", 20)))
+                n_startup_jobs=int(n_startup.get("n_startup_jobs", 20)),
+                fault_stats=self.fault_stats,
+            )
         self.search_stats = search_stats
 
-        if self.asynchronous and "FMinIter_Domain" not in trials.attachments:
-            # out-of-process workers unpickle the domain from this attachment
+        if self.asynchronous:
+            self._publish_retry_policy()
+            if "FMinIter_Domain" not in trials.attachments:
+                # out-of-process workers unpickle the domain from this
+                # attachment; in-process backends (TorchTrials) don't
+                # need it, so unpicklable objectives are fine there
+                try:
+                    trials.attachments["FMinIter_Domain"] = pickle.dumps(domain)
+                except (pickle.PicklingError, AttributeError, TypeError) as e:
+                    logger.info(
+                        "domain not picklable (%s); out-of-process workers "
+                        "will not be able to fetch it",
+                        e,
+                    )
+
+    def _publish_retry_policy(self):
+        """Publish the run's retry policy to out-of-process workers (the
+        ``FMinIter_RetryPolicy`` attachment) and adopt its lease TTL on
+        this queue handle, or clear a previous run's attachment when the
+        run has none.  Reference: ``hyperopt_tpu/fmin.py:185-211``."""
+        trials = self.trials
+        if self.retry_policy is not None:
+            # workers inherit backoff, timeouts, lease TTL and the
+            # attempt budget through this attachment
             try:
-                trials.attachments["FMinIter_Domain"] = pickle.dumps(domain)
-            except (pickle.PicklingError, AttributeError, TypeError) as e:
+                trials.attachments["FMinIter_RetryPolicy"] = self.retry_policy.to_json()
+            except Exception:
                 logger.info(
-                    "domain not picklable (%s); out-of-process workers "
-                    "will not be able to fetch it",
-                    e,
+                    "could not persist retry policy attachment; "
+                    "workers fall back to their own defaults",
+                    exc_info=True,
                 )
+            if getattr(trials, "jobs", None) is not None:
+                # the policy's lease_ttl IS the run's lease TTL: the
+                # reaper's expiry clock and stale-lock aging must agree
+                # with the leases workers grant under the same policy
+                trials.jobs.lease_ttl = self.retry_policy.lease_ttl
+        else:
+            # a resumed run without a policy must not leave workers
+            # obeying a previous run's attachment
+            try:
+                del trials.attachments["FMinIter_RetryPolicy"]
+            except KeyError:
+                pass
+            except Exception:
+                logger.info("could not clear stale retry policy attachment", exc_info=True)
+
+    def _evaluate_trial(self, spec, ctrl, trial):
+        """One objective evaluation under the run's retry policy (when
+        set): backoff and deterministic jitter between attempts, the
+        per-trial watchdog, and :class:`~hyperopt_tpu_torch.resilience.
+        retry.TrialQuarantined` after ``max_attempts``, which the callers
+        turn into ``JOB_STATE_ERROR`` while the run goes on.  Reference:
+        ``hyperopt_tpu/fmin.py:229-248``."""
+        if self.retry_policy is None:
+            return self.domain.evaluate(spec, ctrl)
+        result, attempts = execute_with_retry(
+            lambda: self.domain.evaluate(spec, ctrl),
+            self.retry_policy,
+            key=trial["tid"],
+            stats=self.fault_stats,
+        )
+        trial["misc"]["attempts"] = attempts
+        return result
+
+    @staticmethod
+    def _quarantine(trial, e):
+        """Record a trial whose retry budget ran out: error state (which
+        the TPE fit excludes) with its attempts and last error."""
+        logger.error("trial %s quarantined: %s", trial["tid"], e)
+        trial["state"] = JOB_STATE_ERROR
+        trial["misc"]["attempts"] = e.attempts
+        trial["misc"]["error"] = (str(type(e.last_error)), str(e.last_error))
+        trial["refresh_time"] = coarse_utcnow()
 
     def serial_evaluate(self, N=-1):
         for trial in self.trials._dynamic_trials:
@@ -209,7 +277,10 @@ class FMinIter:
                 spec = spec_from_misc(trial["misc"])
                 ctrl = Ctrl(self.trials, current_trial=trial)
                 try:
-                    result = self.domain.evaluate(spec, ctrl)
+                    result = self._evaluate_trial(spec, ctrl, trial)
+                except TrialQuarantined as e:
+                    # the retry budget is spent: quarantine, keep the run
+                    self._quarantine(trial, e)
                 except Exception as e:
                     logger.error("job exception: %s", str(e))
                     trial["state"] = JOB_STATE_ERROR
@@ -249,9 +320,9 @@ class FMinIter:
             ctrl = Ctrl(self.trials, current_trial=trial)
             box = {}
 
-            def _evaluate(spec=spec, ctrl=ctrl, box=box):
+            def _evaluate(spec=spec, ctrl=ctrl, box=box, trial=trial):
                 try:
-                    box["result"] = self.domain.evaluate(spec, ctrl)
+                    box["result"] = self._evaluate_trial(spec, ctrl, trial)
                 except BaseException as e:
                     box["error"] = e
 
@@ -280,6 +351,12 @@ class FMinIter:
                     # not catch it either
                     engine.discard()
                     raise e
+                if isinstance(e, TrialQuarantined):
+                    # the pending speculations hypothesized this trial
+                    # landing above; the validity check re-issues them
+                    # against the error outcome
+                    self._quarantine(trial, e)
+                    continue
                 logger.error("job exception: %s", str(e))
                 trial["state"] = JOB_STATE_ERROR
                 trial["misc"]["error"] = (str(type(e)), str(e))
@@ -372,6 +449,15 @@ class FMinIter:
             if engine is not None:
                 # on every exit path, drop speculations nothing will read
                 _stack.callback(engine.discard)
+            if self.asynchronous and getattr(self.trials, "jobs", None) is not None:
+                # durable queue (FileTrials): reclaim dead workers'
+                # trials and clear torn or stale locks while the run
+                # lasts.  Reference: hyperopt_tpu/fmin.py:475-487
+                from .resilience.leases import LeaseReaper
+
+                _stack.enter_context(
+                    LeaseReaper(self.trials, policy=self.retry_policy, stats=self.fault_stats)
+                )
             progress_ctx = _stack.enter_context(
                 progress_callback(initial=0, total=N)
             )
@@ -495,8 +581,10 @@ class FMinIter:
             if block_until_done:
                 self.block_until_done()
             self.trials.refresh()
-            if self.verbose and engine is not None:
-                self.speculation_stats.log_summary(logging.DEBUG)
+            if self.verbose:
+                if engine is not None:
+                    self.speculation_stats.log_summary(logging.DEBUG)
+                self.fault_stats.log_summary(logging.DEBUG)
             logger.debug("Queue empty, exiting run.")
 
     def exhaust(self):
@@ -553,12 +641,27 @@ def fmin(
     trajectory exactly; k=0 is the strictly serial loop.  Algorithms
     without a ``speculation_policy`` keep the serial loop at any k.
 
-    ``validate_space=True``, ``retry_policy``, ``fault_stats`` and a
-    ``trials_save_file`` ending in ``.orbax`` raise ``NotImplementedError``
-    (their subsystems are not ported yet).  A plain ``trials_save_file`` is
-    a pickle checkpoint the next run resumes from.
+    ``retry_policy``: a :class:`hyperopt_tpu_torch.resilience.RetryPolicy`
+    for fault-tolerant trial execution: up to ``max_attempts`` executions
+    per trial with exponential backoff and deterministic jitter, an
+    optional per-trial ``trial_timeout`` watchdog, and quarantine on
+    exhaustion (the trial lands in ``JOB_STATE_ERROR``, is excluded from
+    the TPE fit, and the run continues).  With ``FileTrials`` the policy
+    also configures the lease reaper (which runs with defaults when the
+    policy is None) and reaches out-of-process workers through the
+    ``FMinIter_RetryPolicy`` queue attachment.
+
+    ``fault_stats``: a shared
+    :class:`~hyperopt_tpu_torch.observability.FaultStats` to record
+    recovery events into; by default the driver owns a private one,
+    ``FMinIter.fault_stats``, which its ``SearchStats`` also reads.
+
+    ``validate_space=True`` and a ``trials_save_file`` ending in
+    ``.orbax`` raise ``NotImplementedError`` (their subsystems are not
+    ported yet).  A plain ``trials_save_file`` is a pickle checkpoint the
+    next run resumes from.
     """
-    _check_unported(validate_space, retry_policy, fault_stats, trials_save_file)
+    _check_unported(validate_space, trials_save_file)
 
     if algo is None:
         from .algos import tpe
@@ -605,6 +708,8 @@ def fmin(
             trials_save_file=trials_save_file,
             points_to_evaluate=points_to_evaluate,
             max_speculation=max_speculation,
+            retry_policy=retry_policy,
+            fault_stats=fault_stats,
             search_stats=search_stats,
         )
 
@@ -639,6 +744,8 @@ def fmin(
         early_stop_fn=early_stop_fn,
         trials_save_file=trials_save_file,
         max_speculation=max_speculation,
+        retry_policy=retry_policy,
+        fault_stats=fault_stats,
         search_stats=search_stats,
     )
     rval.catch_eval_exceptions = catch_eval_exceptions

@@ -1,13 +1,17 @@
-"""Overlap accounting of the speculative suggest engine.
+"""Overlap accounting of the speculative suggest engine, and the fault
+counters of the resilience layer.
 
-Reference parity: ``SpeculationStats`` of ``hyperopt_tpu/observability.py``
-(``:71-163``).  The rest of that module (phase timings, fault counts, the
-suggest observers) is not ported yet (ROADMAP.md, queue A item 8).
+Reference parity: ``SpeculationStats`` and ``FaultStats`` of
+``hyperopt_tpu/observability.py`` (``:71-274``).  The rest of that module
+(phase timings, latency histograms, store and service stats, Prometheus
+rendering) is not ported yet (ROADMAP.md, queue A).
 """
 
 from __future__ import annotations
 
 import logging
+import threading
+from collections import defaultdict
 
 logger = logging.getLogger(__name__)
 
@@ -103,4 +107,95 @@ class SpeculationStats:
             s["n_invalidated"],
             s["n_sync"],
             s["n_discarded"],
+        )
+
+
+class FaultStats:
+    """Fault-tolerance accounting for :mod:`hyperopt_tpu_torch.resilience`.
+
+    Every recovery event in the fault-tolerance layer — lease expiries and
+    reclamations, retries and their backoff sleeps, quarantines, device
+    re-initializations, CPU fallbacks, dropped stale results, and every
+    chaos-injected fault (``chaos_*`` keys) — lands here, so a run can
+    assert that injected faults and recoveries balance (the chaos
+    campaign's accounting invariant).
+
+    Counters are an open set keyed by event name; the well-known keys are
+
+    - ``lease_expired`` / ``lease_reclaimed`` / ``lease_quarantined`` —
+      reaper activity (expiries observed, trials re-queued, trials moved
+      to ``JOB_STATE_ERROR`` after ``max_attempts``)
+    - ``stale_lock_cleared`` — torn/orphaned lock files removed
+    - ``trial_failure`` / ``trial_retried`` / ``trial_quarantined`` —
+      retry-policy activity (plus ``backoff_s`` accumulated sleep)
+    - ``objective_timeout`` — per-trial watchdog expiries
+    - ``stale_result_dropped`` — a worker's result discarded because its
+      lease had been reclaimed while it ran
+    - ``heartbeat`` — lease renewals
+    - ``device_error`` / ``device_reinit`` / ``cpu_fallback`` — device
+      recovery activity (the reference's; the port records none yet)
+    - ``chaos_<site>`` — faults injected by the chaos harness
+
+    Thread-safe: the reaper, worker threads, and the driver all record
+    concurrently.
+    """
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._counts = defaultdict(int)
+        self._backoff_s = 0.0
+
+    def record(self, event: str, n: int = 1):
+        with self._lock:
+            self._counts[event] += n
+
+    def record_backoff(self, seconds: float):
+        with self._lock:
+            self._backoff_s += float(seconds)
+
+    def get(self, event: str) -> int:
+        with self._lock:
+            return self._counts.get(event, 0)
+
+    @property
+    def backoff_s(self) -> float:
+        with self._lock:
+            return self._backoff_s
+
+    def counts(self) -> dict:
+        """Snapshot of all counters (sorted, chaos keys included)."""
+        with self._lock:
+            return dict(sorted(self._counts.items()))
+
+    def injected(self) -> dict:
+        """Just the chaos-injected fault counters, keyed by site."""
+        with self._lock:
+            return {
+                k[len("chaos_"):]: v
+                for k, v in sorted(self._counts.items())
+                if k.startswith("chaos_")
+            }
+
+    def merge(self, other: "FaultStats"):
+        """Fold another FaultStats into this one (campaign aggregation)."""
+        o = other.counts()
+        ob = other.backoff_s
+        with self._lock:
+            for k, v in o.items():
+                self._counts[k] += v
+            self._backoff_s += ob
+
+    def summary(self) -> dict:
+        out = self.counts()
+        out["backoff_s"] = round(self.backoff_s, 6)
+        return out
+
+    def log_summary(self, level=logging.INFO):
+        s = self.summary()
+        if len(s) == 1:  # only backoff_s, nothing happened
+            return
+        logger.log(
+            level,
+            "faults: %s",
+            " ".join(f"{k}={v}" for k, v in s.items()),
         )

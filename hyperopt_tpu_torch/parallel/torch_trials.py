@@ -49,6 +49,7 @@ from ..base import (
     validate_timeout,
 )
 from ..device import resolve_device
+from ..observability import FaultStats
 from ..utils import coarse_utcnow
 
 logger = logging.getLogger(__name__)
@@ -151,7 +152,7 @@ class TorchTrials(Trials):
         from ..fmin import _check_unported
         from ..fmin import fmin as _fmin
 
-        _check_unported(False, retry_policy, fault_stats, trials_save_file)
+        _check_unported(False, trials_save_file)
         assert (
             not pass_expr_memo_ctrl
         ), "TorchTrials executes objectives outside the driver; plain configs only"
@@ -159,6 +160,10 @@ class TorchTrials(Trials):
         loss_threshold = (
             loss_threshold if loss_threshold is not None else self.loss_threshold
         )
+        if retry_policy is not None and fault_stats is None:
+            # one FaultStats shared by the dispatcher threads and the
+            # driver, so retry and quarantine counts land in one place
+            fault_stats = FaultStats()
         state = _TorchFMinState(
             fn,
             space,
@@ -167,6 +172,8 @@ class TorchTrials(Trials):
             trial_timeout=self.trial_timeout,
             device_fn=self.device_fn,
             device=self.device,
+            retry_policy=retry_policy,
+            fault_stats=fault_stats,
         )
         self._fmin_state = state
         state.start()
@@ -197,6 +204,8 @@ class TorchTrials(Trials):
                     if max_speculation is not None
                     else self.max_speculation
                 ),
+                retry_policy=retry_policy,
+                fault_stats=fault_stats,
                 search_stats=search_stats,
             )
         finally:
@@ -218,11 +227,17 @@ class _TorchFMinState:
         trial_timeout=None,
         device_fn=None,
         device=None,
+        retry_policy=None,
+        fault_stats=None,
     ):
         self.trials = trials
         self.domain = Domain(fn, space)
         self.parallelism = parallelism
         self.trial_timeout = trial_timeout
+        # the host plane's retry policy (backoff, per-attempt watchdog,
+        # quarantine); the device plane's batch keeps its own path
+        self.retry_policy = retry_policy
+        self.fault_stats = fault_stats
         self.device = device
         self._device_eval = None
         if device_fn is not None:
@@ -292,6 +307,25 @@ class _TorchFMinState:
             self._pool.submit(self._run_one, trial)
 
     # -- host plane ----------------------------------------------------
+    def _evaluate(self, spec, ctrl, trial):
+        """One objective call, under the retry policy when one is set;
+        exhaustion raises ``TrialQuarantined``, which :meth:`_run_one`
+        lands as JOB_STATE_ERROR while the run goes on."""
+        if self.retry_policy is None:
+            return self.domain.evaluate(spec, ctrl)
+        # lazy: resilience.retry imports this package (via file_trials)
+        from ..resilience.retry import execute_with_retry
+
+        result, attempts = execute_with_retry(
+            lambda: self.domain.evaluate(spec, ctrl),
+            self.retry_policy,
+            key=trial["tid"],
+            stats=self.fault_stats,
+        )
+        with self._mutate_lock:
+            trial["misc"]["attempts"] = attempts
+        return result
+
     def _run_one(self, trial):
         spec = spec_from_misc(trial["misc"])
         ctrl = Ctrl(self.trials, current_trial=trial)
@@ -302,7 +336,7 @@ class _TorchFMinState:
 
                 def target():
                     try:
-                        result_box["result"] = self.domain.evaluate(spec, ctrl)
+                        result_box["result"] = self._evaluate(spec, ctrl, trial)
                     except BaseException as e:  # propagated below
                         result_box["error"] = e
 
@@ -323,7 +357,7 @@ class _TorchFMinState:
                     raise result_box["error"]
                 result = result_box["result"]
             else:
-                result = self.domain.evaluate(spec, ctrl)
+                result = self._evaluate(spec, ctrl, trial)
         except Exception as e:
             logger.error("trial %s exception: %s", trial["tid"], e)
             with self._mutate_lock:

@@ -325,3 +325,74 @@ def test_torch_trials_device_plane_on_card(cuda):
         assert t["state"] == T.JOB_STATE_DONE
         cfg = {k: v[0] for k, v in t["misc"]["vals"].items()}
         assert t["result"]["loss"] == pytest.approx(d.fn(cfg), rel=1e-4)
+
+
+def test_file_trials_with_threaded_workers_on_card(cuda, monkeypatch, tmp_path):
+    """``FileTrials`` with two threaded workers and ``tpe.suggest`` on the
+    card at a 2000-trial history with 4096 candidates: 2 pair-score
+    launches per suggest call, every trial DONE, each call's suggestion
+    equal bit for bit to the card's suggest from a fresh ``Trials``
+    holding the same docs, and the card's values against the CPU's (same
+    history, same uniform streams) by ``chip_smoke``'s rule for k-id
+    suggests, over the call's seed and 7 more per call (a share read over
+    ~1,000 values, not ~80)."""
+    import copy
+    import threading
+
+    import chip_smoke as cs
+    import hyperopt_tpu_torch as T
+    from hyperopt_tpu_torch.parallel.worker import FileWorker, ReserveTimeout
+
+    monkeypatch.setenv("HYPEROPT_TPU_SCORER", "pallas")  # no probe: the pair-score kernel
+    qdir = str(tmp_path / "q")
+    trials = T.FileTrials(qdir)
+    assert trials.new_trial_ids(2000) == list(range(2000))
+    cs.prefilled_trials(T, 2000, trials=trials)
+    kw = dict(n_EI_candidates=4096)
+    calls, tally = [], {"pairs": 0, "close": 0, "ties": []}
+
+    def card_and_cpu(new_ids, domain, trials_, seed):
+        # a plain function: the engine stays off and the loop is serial
+        before, cards = pair_score_batched.launches, []
+        with cs.cpu_drawn_streams():
+            fresh = T.tpe.suggest(new_ids, domain, T.trials_from_docs(
+                copy.deepcopy(trials_._dynamic_trials)), seed, **kw)
+        seeds = [seed] + [seed + i for i in range(1, 8)]
+        pairs, close, mismatches = cs.card_agrees_with_cpu(
+            T, domain, trials_, new_ids, seeds, cards=cards, **kw)
+        calls.append((len(new_ids), pair_score_batched.launches - before))
+        assert ([d["misc"]["vals"] for d in cards[0]]
+                == [d["misc"]["vals"] for d in fresh])
+        tally["pairs"] += pairs
+        tally["close"] += close
+        tally["ties"] += cs.near_ties(T, domain, trials_, new_ids, mismatches, **kw)
+        return cards[0]
+
+    stop = threading.Event()
+
+    def work():
+        w = FileWorker(qdir, poll_interval=0.02)
+        while not stop.is_set():
+            try:
+                w.run_one(reserve_timeout=0.5)
+            except ReserveTimeout:
+                continue
+
+    workers = [threading.Thread(target=work, daemon=True) for _ in range(2)]
+    for t in workers:
+        t.start()
+    try:
+        T.fmin(cs.bench_objective, cs.bench_space(T.hp), algo=card_and_cpu,
+               max_evals=2016, trials=trials, max_queue_len=2,
+               rstate=np.random.default_rng(0), show_progressbar=False)
+    finally:
+        stop.set()
+        for t in workers:
+            t.join(timeout=30)
+    trials.refresh()
+    new = [d for d in trials._dynamic_trials if d["tid"] >= 2000]
+    assert len(new) == 16 and all(d["state"] == T.JOB_STATE_DONE for d in new)
+    # one launch per unquantized family (lr+sigma, momentum+z): the fresh
+    # Trials' suggest, then 8 seeds against the CPU
+    assert calls and all(launched == 2 * 9 for _, launched in calls), calls
+    cs.assert_agreement(tally["pairs"], tally["close"], tally["ties"])

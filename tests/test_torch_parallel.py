@@ -207,11 +207,16 @@ def test_arguments():
     assert TorchTrials(parallelism=1000, device="cpu").parallelism == 128
     with pytest.raises(NotImplementedError, match="item 7"):
         TorchTrials(mesh=object(), device="cpu")
+    # retry_policy and fault_stats are ported: the run takes them
     trials = TorchTrials(device="cpu")
-    for kw in ({"retry_policy": object()}, {"fault_stats": object()}):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            trials.fmin(lambda c: 0.0, {"x": T.hp.uniform("x", 0, 1)}, algo=CPU_RAND,
-                        max_evals=1, **kw)
+    stats = T.observability.FaultStats()
+    trials.fmin(lambda c: 0.0, {"x": T.hp.uniform("x", 0, 1)}, algo=CPU_RAND,
+                max_evals=2, retry_policy=T.resilience.RetryPolicy(), fault_stats=stats,
+                show_progressbar=False)
+    assert len(trials) == 2 and stats.counts() == {}
+    with pytest.raises(NotImplementedError, match="item 6"):
+        trials.fmin(lambda c: 0.0, {"x": T.hp.uniform("x", 0, 1)}, algo=CPU_RAND,
+                    max_evals=3, trials_save_file="run.orbax")
 
 
 # -- a 4-id suggest against the JAX package's --------------------------------

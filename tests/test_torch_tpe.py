@@ -320,10 +320,12 @@ def test_fmin_resumes_from_pickle(tmp_path):
 
 
 @pytest.mark.parametrize("kwargs", [
-    # speculation is ported; with a keyword that is not, fmin still raises
-    {"max_speculation": 2, "retry_policy": object()}, {"validate_space": True},
-    {"retry_policy": object()},
-    {"fault_stats": object()}, {"trials_save_file": "run.orbax"},
+    # speculation, retry policies and fault stats are ported; with a
+    # keyword that is not, fmin still raises
+    {"max_speculation": 2, "validate_space": True}, {"validate_space": True},
+    {"retry_policy": T.resilience.RetryPolicy(), "trials_save_file": "run.orbax"},
+    {"fault_stats": T.observability.FaultStats(), "validate_space": True},
+    {"trials_save_file": "run.orbax"},
 ])
 def test_unported_keywords_raise(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
