@@ -87,7 +87,29 @@ non-zero without the final line):
     Then a fresh ``FileTrials`` reads the queue back and a second
     ``fmin`` continues it; the workers exit 0 on SIGTERM, none having
     initialised CUDA.
-20. ``timing``: each kernel, its plain version and one PyTorch library call
+    Then ``fsck`` on that queue, after one more writer SIGKILLed inside
+    a segment append: only rules a killed writer can leave, repaired,
+    clean on a second pass, the same docs read back, the CLI exits 0.
+20. ``space_lint``: ``fmin(validate_space=True)`` over bench.py's space
+    from the 10,000-trial history, 4 trials on the serial loop (2
+    pair-score launches each); a space with an SP error raises
+    ``InvalidSpaceError`` before any launch; the lint's host ms.
+21. ``device_recovery``: the pipelined fmin (k=1) at that history with
+    the 50 ms objective, 8 trials: two device errors injected through the
+    chaos harness's device site on consecutive dispatches (the trials
+    equal a fault-free run's, 2 errors and 2 re-initializations, the
+    history uploaded again, the kernel launched after the reset); one
+    real ``torch.cuda.OutOfMemoryError`` (an allocation past the card's
+    memory) on the first dispatch, recovered with the same trials;
+    three consecutive injected errors raise, with no CPU fallback and
+    every dispatch on the card.  Seconds per re-initialization.
+22. ``profiler``: ``profiling.DeviceProfiler`` over 16 serial suggests at
+    the main path's shape and one on the fused tier: per dispatch the
+    CUDA-event device seconds beside the host-observed ones, modeled
+    FLOPs and bytes, binding ceiling and share; the duty cycle; the
+    Prometheus text parses; suggest p50 with and without the profiler,
+    16 each in turns.
+23. ``timing``: each kernel, its plain version and one PyTorch library call
     computing the same function, by CUDA events at the main-path shape;
     the kernel's device ms per launch (``torch.profiler``); its bound, the
     larger of the f32 operations at the f32 peak, the issue slots and SFU
@@ -1031,19 +1053,41 @@ def card_agrees_with_cpu(T, domain, trials, ids, seeds, cards=None, **kw):
 
 
 def near_ties(T, domain, trials, ids, mismatches, **kw):
-    """Each mismatch's gap under the CPU's own plain scorer: how much
-    higher the CPU's winner scores than the card's.  The card's argmax
-    can differ from the CPU's only where that gap is at most twice the
-    per-score TOLERANCE between the kernel and the plain version (each of
-    the two scores may be off by one TOLERANCE), so a larger gap fails."""
+    """Each mismatch's gap under the CPU suggest's own scores: how much
+    higher the CPU's winner scores than the card's.  Both winners are
+    looked up among the CPU suggest's candidates for that id
+    (``tpe.plain_label_scores``: its candidates, and its scores from the
+    same plain products it made; the card's winner is the CPU candidate
+    nearest its value, since the card's draw may differ from the CPU's by
+    an ulp), so the CPU's winner scores at least as high and the gap is
+    never negative.  The card's argmax can differ from the CPU's only
+    where that gap is at most twice the per-score TOLERANCE between the
+    kernel and the plain version (each of the two scores may be off by one
+    TOLERANCE), so a larger gap fails.  Only the chunks holding the two
+    winners are scored, in f32 and f64, once per (seed, label)."""
+    groups = {}
+    for m in mismatches:
+        groups.setdefault((m[0], m[2]), []).append(m)
     rows = []
-    for seed, j, lb, card_v, cpu_v in mismatches:
-        s, s64 = (torch.from_numpy(T.tpe.plain_label_scores(
-            ids, domain, trials, seed, lb, [card_v, cpu_v], dtype=dt, **kw))
-            for dt in (torch.float32, torch.float64))
-        allow, _ = allowance(s, s64)
-        rows.append({"seed": seed, "id": j, "label": lb, "card": card_v, "cpu": cpu_v,
-                     "gap": float(s[1] - s[0]), "allow": 2 * float(allow.min())})
+    for (seed, lb), group in groups.items():
+        cands, _ = T.tpe.plain_label_scores(ids, domain, trials, seed, lb, at=[], **kw)
+        picks = []
+        for _, j, _, card_v, cpu_v in group:
+            row = cands[j]
+            picks.append((j, int(np.argmin(np.abs(row - card_v))),
+                          int(np.argmin(np.abs(row - cpu_v)))))
+        at = [j * cands.shape[1] + i for j, a, b in picks for i in (a, b)]
+        _, s = T.tpe.plain_label_scores(ids, domain, trials, seed, lb, at=at, **kw)
+        _, s64 = T.tpe.plain_label_scores(ids, domain, trials, seed, lb,
+                                          dtype=torch.float64, at=at, **kw)
+        for (_, _, _, card_v, cpu_v), (j, i_card, i_cpu) in zip(group, picks):
+            assert np.isclose(cands[j, i_cpu], cpu_v, rtol=1e-6), (lb, cands[j, i_cpu], cpu_v)
+            pick = [i_card, i_cpu]
+            allow, _ = allowance(torch.from_numpy(s[j, pick]), torch.from_numpy(s64[j, pick]))
+            rows.append({"seed": seed, "id": j, "label": lb, "card": card_v, "cpu": cpu_v,
+                         "card_candidate": float(cands[j, i_card]),
+                         "gap": float(s[j, i_cpu] - s[j, i_card]),
+                         "allow": 2 * float(allow.min())})
     return rows
 
 
@@ -1062,14 +1106,21 @@ def assert_agreement(pairs, close, ties):
     mismatch a near-tie within the allowance TOLERANCE implies; on failure
     the message carries the share, the mismatches by label and the ones
     outside the allowance."""
-    by_label = {}
-    for t in ties:
-        by_label[t["label"]] = by_label.get(t["label"], 0) + 1
     outside = [t for t in ties if not 0.0 <= t["gap"] <= t["allow"]]
     assert close >= AGREEMENT_SHARE * pairs and not outside, dict(
-        close=close, pairs=pairs, share=close / pairs, mismatches_by_label=by_label,
+        close=close, pairs=pairs, share=close / pairs, **mismatch_tables(ties),
         worst_gap_over_allowance=max((t["gap"] / t["allow"] for t in ties), default=0.0),
         outside_allowance=outside)
+
+
+def mismatch_tables(ties):
+    """The mismatches counted by label, and by label and seed."""
+    by_label, by_label_seed = {}, {}
+    for t in ties:
+        by_label[t["label"]] = by_label.get(t["label"], 0) + 1
+        key = f'{t["label"]}/{t["seed"]}'
+        by_label_seed[key] = by_label_seed.get(key, 0) + 1
+    return {"mismatches_by_label": by_label, "mismatches_by_label_seed": by_label_seed}
 
 
 def phase_multi_id_suggest(T, counters, card, rounds=3):
@@ -1130,7 +1181,7 @@ def phase_multi_id_suggest(T, counters, card, rounds=3):
                                "share_of_bound": kernel["bound_ms"] / kernel["ms"]},
            "candidates_per_label": MULTI_IDS * N_CAND, "launches": launches,
            "pairs": pairs, "equal_to_rtol_1e_5": close, "share": close / pairs,
-           "per_seed": per_seed, "near_ties": ties,
+           "per_seed": per_seed, "near_ties": ties, **mismatch_tables(ties),
            "worst_gap_over_allow": max([t["gap"] / t["allow"] for t in ties], default=0.0),
            "card_vs_cpu_seconds": compare_s,
            "multi_ms": times["multi"], "singles_ms": times["singles"],
@@ -1613,10 +1664,346 @@ def phase_file_trials(T, counters, serial_rows, parallel_ms_per_trial, n_evals=3
         assert len(exits) == n_workers - 1
         assert all(v == (0, "False") for v in exits.values()), exits
         assert not bad_lines, bad_lines
+        # (d) fsck on this queue, every writer stopped
+        phase_fsck(T, q)
     finally:
         if workers is not None:
             workers.close()
         shutil.rmtree(qdir, ignore_errors=True)
+
+
+# rules a writer killed mid-operation can leave in a queue (a torn doc or
+# segment tail, its lease or lock, a tmp dropping, the id allocator's lock,
+# a compactor's orphan); the others mean a fault of the store itself
+KILLED_WRITER_RULES = {"FS401", "FS402", "FS403", "FS406", "FS408", "FS410", "FS412"}
+
+_TORN_APPEND = """
+import sys
+sys.path.insert(0, {root!r})
+from hyperopt_tpu_torch.resilience import chaos
+from hyperopt_tpu_torch.parallel.file_trials import FileJobs
+with chaos.active(chaos.ChaosMonkey(chaos.ChaosConfig(seed=5, p_torn_segment=1.0))):
+    FileJobs({q!r}).insert({{"tid": {tid}, "state": 0, "misc": {{"tid": {tid}}}}})
+raise SystemExit("the chaos site never fired")
+"""
+
+
+def phase_fsck(T, q):
+    """``fsck`` on ``file_trials``' queue after its SIGKILL and resume, and
+    after one more writer SIGKILLed inside a segment append (the chaos
+    harness's torn-segment site, a real process): the dry run lists only
+    rules a killed writer can leave, the repair reads clean on a second
+    pass, a fresh ``FileTrials`` reads the same docs as before the repair,
+    and the CLI exits 0 on the clean queue."""
+    from hyperopt_tpu_torch.resilience import fsck
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    first = fsck.fsck_queue(q)
+    first_s = time.perf_counter() - t0
+    tid = max(d["tid"] for d in T.FileTrials(q)._dynamic_trials) + 100
+    kill = subprocess.run([sys.executable, "-c", _TORN_APPEND.format(root=root, q=q, tid=tid)],
+                          capture_output=True, text=True, timeout=300)
+    before = sorted((d["tid"], d["state"]) for d in T.FileTrials(q)._dynamic_trials)
+    t0 = time.perf_counter()
+    dry = fsck.fsck_queue(q)
+    dry_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    repaired = fsck.fsck_queue(q, repair=True)
+    repair_s = time.perf_counter() - t0
+    second = fsck.fsck_queue(q)
+    after = sorted((d["tid"], d["state"]) for d in T.FileTrials(q)._dynamic_trials)
+    cli = subprocess.run([sys.executable, "-m", "hyperopt_tpu_torch.resilience.fsck", q],
+                         capture_output=True, text=True, timeout=300, cwd=root)
+    emit("fsck", n_docs=dry.n_docs, after_file_trials=first.by_rule(), after_file_trials_s=first_s,
+         writer_exit=kill.returncode, dry_run=dry.by_rule(), dry_run_s=dry_s,
+         repaired=repaired.by_rule(), repair_s=repair_s,
+         repair_actions=[f.action for f in repaired.findings],
+         second_pass_clean=second.clean, docs_equal_before_and_after=before == after,
+         cli_exit=cli.returncode, cli_last_line=cli.stdout.strip().splitlines()[-1:])
+    assert kill.returncode == -9, (kill.returncode, kill.stderr)
+    assert set(first.by_rule()) <= KILLED_WRITER_RULES, first.format()
+    assert set(dry.by_rule()) <= KILLED_WRITER_RULES and "FS410" in dry.by_rule(), dry.format()
+    assert repaired.clean and second.clean and not second.findings, second.format()
+    assert before == after and tid not in {t for t, _ in after}
+    assert cli.returncode == 0 and cli.stdout.strip().endswith("clean"), cli.stdout + cli.stderr
+
+
+def phase_space_lint(T, counters, n_trials=4, reps=20):
+    """``fmin(validate_space=True)`` over bench.py's space from the
+    10,000-trial history: 4 trials on the card (the serial loop), the
+    pair-score kernel launched twice per suggest; a space with an SP error
+    raises ``InvalidSpaceError`` before any launch; the lint's host ms."""
+    from hyperopt_tpu_torch.analysis import lint_space
+    from hyperopt_tpu_torch.pyll.base import scope
+
+    space = bench_space(T.hp)
+    lint_ms = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        diags = lint_space(space)
+        lint_ms.append((time.perf_counter() - t0) * 1e3)
+    assert diags == [], diags
+    trials = prefilled_trials(T, N_HISTORY)
+    for c in counters:
+        c.launches = 0
+    T.fmin(bench_objective, space, algo=partial(T.tpe.suggest, n_EI_candidates=N_CAND),
+           max_evals=N_HISTORY + n_trials, trials=trials, rstate=np.random.default_rng(0),
+           show_progressbar=False, max_speculation=0, validate_space=True)
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counters}
+    assert len(trials.trials) == N_HISTORY + n_trials
+    for doc in trials.trials[N_HISTORY:]:
+        check_bench_values({k: v[0] for k, v in doc["misc"]["vals"].items()})
+    bad = dict(space, x=scope.float(scope.hyperopt_param("x", scope.loguniform(0.0, 100.0))))
+    for c in counters:
+        c.launches = 0
+    try:
+        T.fmin(bench_objective, bad, algo=partial(T.tpe.suggest, n_EI_candidates=N_CAND),
+               max_evals=N_HISTORY + n_trials + 1, trials=trials,
+               rstate=np.random.default_rng(1), show_progressbar=False, validate_space=True)
+        raised = None
+    except T.InvalidSpaceError as e:
+        raised = sorted(d.rule for d in e.diagnostics)
+    bad_launches = {c.__name__: c.launches for c in counters}
+    emit("space_lint", n_history=N_HISTORY, n_trials=n_trials, n_EI_candidates=N_CAND,
+         launches=launches, lint_ms_median=float(np.median(lint_ms)), lint_ms_all=lint_ms,
+         bad_space_rules=raised, bad_space_launches=bad_launches)
+    assert launches["pair_score_batched"] == 2 * n_trials, launches
+    assert launches["fused_suggest"] == 0, launches
+    assert raised == ["SP105"], raised
+    assert not any(bad_launches.values()), bad_launches
+    assert len(trials.trials) == N_HISTORY + n_trials
+    return launches
+
+
+class DispatchLog:
+    """A suggest observer that runs ``fault(i)`` on dispatch ``i`` (before
+    its launches), and records each dispatch's device and the pair-score
+    launch count at that moment; ``histories`` holds every
+    ``DeviceHistory`` a suggest used."""
+
+    def __init__(self, T, fault=None):
+        from hyperopt_tpu_torch.algos import tpe_device
+        from hyperopt_tpu_torch.ops.pair_kernel import pair_score_batched
+
+        self.td, self.counter, self.fault = tpe_device, pair_score_batched, fault
+        self.devices, self.launches_at, self.histories, self.failed = [], [], [], []
+        self._real = tpe_device.device_history_for
+
+    def __call__(self, requests):
+        i = len(self.devices)
+        self.devices.append(str(requests[0][1][1].device))
+        self.launches_at.append(self.counter.launches)
+        if self.fault is not None:
+            try:
+                self.fault(i)
+            except BaseException:
+                self.failed.append(i)
+                raise
+
+    def history_for(self, *args):
+        dh = self._real(*args)
+        if all(dh is not h for h in self.histories):
+            self.histories.append(dh)
+        return dh
+
+    def __enter__(self):
+        self.td._suggest_observers.append(self)
+        self.td.device_history_for = self.history_for
+        return self
+
+    def __exit__(self, *exc):
+        self.td._suggest_observers.remove(self)
+        self.td.device_history_for = self._real
+        return False
+
+
+def recovery_run(T, counters, fault=None):
+    """The pipelined fmin (k=1) at the main path's history with the 50 ms
+    objective, 8 trials, under a DispatchLog with ``fault``; returns
+    (FMinIter or the exception, suggested values, the log, launches)."""
+    trials = prefilled_trials(T, N_HISTORY)
+    it = T.FMinIter(partial(T.tpe.suggest, n_EI_candidates=N_CAND),
+                    T.Domain(training_objective, bench_space(T.hp)), trials,
+                    rstate=np.random.default_rng(0), max_evals=N_HISTORY + N_SUGGESTS,
+                    show_progressbar=False, max_speculation=1)
+    for c in counters:
+        c.launches = 0
+    with DispatchLog(T, fault) as log:
+        try:
+            it.exhaust()
+            out = it
+        except Exception as e:  # read by the caller
+            out = e
+        torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counters}
+    return out, suggested(trials), log, launches
+
+
+def phase_device_recovery(T, counters):
+    """``DeviceRecovery`` on the pipelined fmin at the main path's size:
+    (i) two device errors injected through the chaos harness's device site
+    on consecutive dispatches, within ``max_reinits=2``: the trials equal a
+    fault-free run's, ``FaultStats`` reads 2 errors and 2
+    re-initializations, the history was uploaded again and the pair-score
+    kernel launched after the reset; (ii) one real CUDA error, an
+    allocation larger than the card's memory on the first dispatch:
+    the run recovers with the same trials; (iii) three consecutive
+    injected errors: the run raises, ``cpu_fallback`` stays 0 and every
+    dispatch's tensors lay on the card."""
+    from hyperopt_tpu_torch.resilience.chaos import ChaosConfig, ChaosMonkey
+
+    clean, ref, clean_log, clean_launches = recovery_run(T, counters)
+    assert isinstance(clean, T.FMinIter), clean
+    rows = {"fault_free": {"launches": clean_launches,
+                           "full_rebuilds": sum(h.full_rebuilds for h in clean_log.histories)}}
+
+    def injected(at):
+        monkey = ChaosMonkey(ChaosConfig(seed=0, p_device_error=1.0))
+
+        def fault(i):
+            if i in at:
+                monkey.maybe_device_error()  # raises SyntheticDeviceError
+        return fault
+
+    oom = {}
+
+    def real_oom(i):
+        if i == 0:
+            # past the card's whole memory: no cached block a retry frees
+            # can make room for it
+            _, total = torch.cuda.mem_get_info()
+            oom["requested_bytes"] = total + (1 << 30)
+            torch.empty(oom["requested_bytes"], dtype=torch.uint8, device=DEV)
+
+    for name, fault in (("two_injected", injected({2, 3})), ("real_oom", real_oom),
+                        ("three_injected", injected({2, 3, 4}))):
+        out, vals, log, launches = recovery_run(T, counters, fault)
+        recovered = isinstance(out, T.FMinIter)
+        rec = (out.device_recovery if recovered else None)
+        row = {"recovered": recovered, "error": None if recovered else type(out).__name__,
+               "launches": launches, "dispatch_devices": sorted(set(log.devices)),
+               "n_dispatches": len(log.devices),
+               "full_rebuilds": sum(h.full_rebuilds for h in log.histories),
+               "trials_equal_to_fault_free": sum(a == b for a, b in zip(vals, ref))}
+        if recovered:
+            # the pair-score launches from the first dispatch after the
+            # last failed one (after the last reset) to the end
+            row.update(faults=out.fault_stats.counts(), reinit_s=list(rec.reinit_seconds),
+                       failed_dispatches=log.failed,
+                       launches_after_last_reset=launches["pair_score_batched"]
+                       - log.launches_at[log.failed[-1] + 1])
+        if name == "real_oom":
+            row["requested_bytes"] = oom.get("requested_bytes")
+        rows[name] = row
+        emit("device_recovery", case=name, n_history=N_HISTORY, n_trials=N_SUGGESTS,
+             max_speculation=1, **row)
+        assert all(d.startswith("cuda") for d in log.devices), log.devices
+        if name == "three_injected":
+            assert not recovered and row["error"] == "SyntheticDeviceError", out
+            continue
+        assert recovered, out
+        faults = out.fault_stats
+        assert vals == ref, (vals, ref)
+        assert faults.get("cpu_fallback") == 0 and not rec.cpu_fallback_active
+        if name == "two_injected":
+            assert (faults.get("device_error"), faults.get("device_reinit")) == (2, 2), \
+                faults.counts()
+        else:
+            assert (faults.get("device_error"), faults.get("device_reinit")) == (1, 1), \
+                faults.counts()
+        assert row["full_rebuilds"] > rows["fault_free"]["full_rebuilds"], row
+        assert row["launches_after_last_reset"] > 0, row
+    # (iii) the run raised: the budget's end, not a move to the CPU
+    return rows
+
+
+SAMPLE_LINE = re.compile(r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{([a-zA-Z_][a-zA-Z0-9_]*="([^"\\]|\\.)*",?)*\})? \S+$')
+
+
+def phase_profiler(T, counters, trials, n=16, rounds=16):
+    """The roofline profiler over 16 serial suggests at the main path's
+    shape on the default tier and one dispatch on the fused tier: per
+    dispatch the CUDA-event device seconds beside the host-observed ones,
+    the modeled FLOPs and bytes, the binding ceiling and the share of it;
+    DeviceStats' duty cycle; the Prometheus text (every sample line
+    parses); then the installed overhead: steady suggest p50 with and
+    without the profiler, in turns."""
+    from hyperopt_tpu_torch import profiling
+    from hyperopt_tpu_torch.algos import tpe_device
+    from hyperopt_tpu_torch.observability import DeviceStats, build_info, render_prometheus
+
+    domain = T.Domain(bench_objective, bench_space(T.hp))
+    base = len(trials.trials)
+    counter = iter(range(10 ** 6))
+
+    def suggest():
+        i = next(counter)
+        t0 = time.perf_counter()
+        T.tpe.suggest([base + i], domain, trials, 5000 + i, n_EI_candidates=N_CAND)
+        return (time.perf_counter() - t0) * 1e3
+
+    suggest()  # this domain's history upload
+    stats = DeviceStats()
+    events = []
+    records = []
+    for c in counters:
+        c.launches = 0
+    with profiling.DeviceProfiler(stats=stats) as prof:
+        def also_event(requests):
+            return events.append
+        tpe_device._suggest_observers.append(also_event)
+        try:
+            for _ in range(n):
+                suggest()
+                records.append(profiling.last_dispatch_record())
+            with scorer_env(HYPEROPT_TPU_SCORER="fused"):
+                suggest()
+                records.append(profiling.last_dispatch_record())
+        finally:
+            tpe_device._suggest_observers.remove(also_event)
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counters}
+    assert tpe_device._suggest_observers == []
+    rows = []
+    for rec, ev in zip(records, events):
+        host_s = ev["launch_s"] + ev["wait_s"] + ev["readback_s"]
+        rows.append({"sig": rec["sig"][-60:], "device_s": rec["device_s"],
+                     "host_observed_s": host_s, "flops": rec["flops"],
+                     "hbm_bytes": rec["hbm_bytes"], "binding_ceiling": rec["binding_ceiling"],
+                     "roofline_pct": rec["roofline_pct"], "compiled": rec["compiled"]})
+    text = render_prometheus(device=stats, build=build_info())
+    samples = [ln for ln in text.splitlines() if not ln.startswith("#")]
+    bad = [ln for ln in samples if not SAMPLE_LINE.match(ln)]
+    summ = stats.summary()
+    # installed overhead: steady p50 with and without, in turns
+    times = {"with": [], "without": []}
+    installed = profiling.DeviceProfiler(stats=DeviceStats())
+    for r in range(2 * rounds):
+        name = ("with", "without")[(r + r // 2) % 2]  # ABBA turns
+        if name == "with":
+            with installed:
+                times[name].append(suggest())
+        else:
+            times[name].append(suggest())
+    p50 = {k: float(np.median(v)) for k, v in times.items()}
+    emit("profiler", n_suggests=n, fused_dispatches=1, launches=launches,
+         dispatches=rows, duty_cycle=summ["duty_cycle"],
+         binding_ceiling_counts=summ["binding_ceiling_counts"],
+         roofline_pct_mean=summ["roofline_pct_mean"], memory=summ["memory"],
+         prometheus_lines=len(text.splitlines()), prometheus_samples=len(samples),
+         unparsed_lines=bad, build_info=build_info(),
+         suggest_ms={"with": times["with"], "without": times["without"]},
+         suggest_p50_ms=p50, overhead_share=p50["with"] / p50["without"] - 1.0,
+         device_s_over_host_s_median=float(np.median(
+             [r["device_s"] / r["host_observed_s"] for r in rows])))
+    assert len(rows) == n + 1 and stats.n_dispatches == n + 1
+    assert launches["pair_score_batched"] == 2 * n and launches["fused_suggest"] == 2, launches
+    assert all(r["binding_ceiling"] and r["device_s"] > 0 for r in rows), rows
+    assert "fused" in rows[-1]["sig"] and not bad, bad
+    assert summ["duty_cycle"] is not None and len(times["with"]) >= 8
+    return p50
 
 
 def exp_split():
@@ -1823,6 +2210,9 @@ def main():
     phase_anneal_mix(T, counters)
     parallel_ms = phase_parallel_backend(T, counters, pipelined)
     phase_file_trials(T, counters, pipelined, parallel_ms)
+    phase_space_lint(T, counters)
+    phase_device_recovery(T, counters)
+    phase_profiler(T, counters, trials)
     launches = {**launches, "fused_suggest": fused_runs["0"][0]["fused_suggest"],
                 "fused_suggest_draw": fused_runs["1"][0]["fused_suggest"],
                 "pair_score_single": single["pair_score_single"]}

@@ -46,7 +46,7 @@ from ..ops import gmm as gmm_ops
 from ..ops import parzen as parzen_ops
 from ..ops.fused_kernel import resolve_fused_draw
 from ..ops.pair_kernel import pair_score_single
-from ..ops.score import pair_params, pair_score, resolve_scorer
+from ..ops.score import PAIR_CHUNK, pair_params, pair_score, resolve_scorer
 from ..vectorize import branch_activity, idxs_vals_from_batch
 from . import rand
 
@@ -614,15 +614,28 @@ def suggest_prepare(
     )
 
 
-def plain_label_scores(new_ids, domain, trials, seed, label, values,
-                       dtype=torch.float32, **kw):
-    """The CPU's plain score (log l − log g) of raw ``values`` for
-    ``label`` at the exact inputs of ``suggest(new_ids, domain, trials,
-    seed, **kw)``: its keep mask, γ-split, lock vectors, narrowed priors
-    and Parzen fits, then the plain pair score (the quantized or
-    categorical lpdf difference where the family has one), evaluated in
-    ``dtype``.  What tells a near-tie between two scorers' winners from a
-    wrong winner; no suggest path calls it."""
+def plain_label_scores(new_ids, domain, trials, seed, label,
+                       dtype=torch.float32, at=None, **kw):
+    """The CPU suggest's own candidates for ``label`` and their plain
+    scores (log l − log g): ``(cands, scores)``, each ``[k, n_cand]`` for
+    the ``k = len(new_ids)`` ids, ``cands`` as raw values.
+
+    ``at`` (flat indices into ``[k * n_cand]``) scores only the chunks of
+    the plain pair score (``ops.score.PAIR_CHUNK`` candidates, the same
+    ``[L, chunk, K]`` products the suggest made) that hold them; the other
+    scores are NaN.  Quantized and categorical labels are scored whole.
+
+    Everything is what ``suggest(new_ids, domain, trials, seed,
+    device="cpu", **kw)`` computes: its keep mask, γ-split, lock vectors,
+    narrowed priors, Parzen fits and candidate draw, then the plain score
+    in the fit space (the log-space ``z`` of a log-scale label) through
+    the scorer call the suggest makes, at the suggest's ``[L, C]`` batch
+    shape; the quantized and categorical lpdf differences where the
+    family has one.  In ``float32`` the scores are the suggest's own, so
+    each id's CPU winner is the first argmax of its row; ``dtype=
+    torch.float64`` evaluates the same candidates in f64.  What tells a
+    near-tie between two scorers' winners from a wrong winner; no suggest
+    path calls it."""
     from . import tpe_device as td
 
     requests, _ = suggest_prepare(new_ids, domain, trials, seed, device="cpu", **kw)
@@ -631,32 +644,56 @@ def plain_label_scores(new_ids, domain, trials, seed, label, values,
         if label not in fam.labels:
             continue
         i = fam.labels.index(label)
-        _, obs, pos, counts, losses, keep, n_below, pw, prior, lock_c, lock_r = args
+        u, obs, pos, counts, losses, keep, n_below, pw, prior, lock_c, lock_r = args
         ranks = td._loss_ranks(losses, keep)
         below, nb, above, na = td._split_pack(obs, pos, counts, ranks, keep, n_below,
                                               lock_c, lock_r, st["cap_b"],
                                               lock_fallback=kind == "idx")
         if kind == "idx":
             pb, pa = (torch.where(prior > 0, gmm_ops.categorical_posterior(
-                obs_, n_, prior, pw, st["upper"], st["lf"]), 0.0).to(dtype)
+                obs_, n_, prior, pw, st["upper"], st["lf"]), 0.0)
                 for obs_, n_ in ((below, nb), (above, na)))
-            x = torch.tensor(fam.to_fit_space(i, values), dtype=dtype)[None].repeat(fam.L, 1)
-            s = gmm_ops.categorical_lpdf(x, pb) - gmm_ops.categorical_lpdf(x, pa)
-            return s[i].numpy()
-        pm, ps, lo, hi, qq = prior.unbind(dim=1)
-        B = [t.to(dtype) for t in parzen_ops.adaptive_parzen_normal_padded(
-            below, nb, pw, pm, ps, st["lf"])]
-        A = [t.to(dtype) for t in parzen_ops.adaptive_parzen_normal_padded(
-            above, na, pw, pm, ps, st["lf"])]
-        x = torch.tensor([values], dtype=torch.float32).repeat(fam.L, 1).to(dtype)
-        if st["quantized"]:
-            lim = [t.to(dtype) for t in (lo, hi, qq)]
-            s = (gmm_ops.gmm_lpdf(x, *B, *lim, st["log_scale"], True)
-                 - gmm_ops.gmm_lpdf(x, *A, *lim, st["log_scale"], True))
+            cands = gmm_ops.categorical_sample(u[:, 0], pb)
+            pb, pa = pb.to(dtype), pa.to(dtype)
+            s = gmm_ops.categorical_lpdf(cands, pb) - gmm_ops.categorical_lpdf(cands, pa)
+            raw = fam.from_fit_space(i, cands[i].numpy())
         else:
-            z = torch.log(x) if st["log_scale"] else x
-            s = pair_score(z, pair_params(*B, *A), B[0].shape[1])
-        return s[i].numpy()
+            pm, ps, lo, hi, qq = prior.unbind(dim=1)
+            B = parzen_ops.adaptive_parzen_normal_padded(below, nb, pw, pm, ps, st["lf"])
+            A = parzen_ops.adaptive_parzen_normal_padded(above, na, pw, pm, ps, st["lf"])
+            cands = gmm_ops.gmm_sample(u[:, 0], u[:, 1], *B, lo, hi, qq, st["log_scale"])
+            # the suggest's own scoring of its candidates, in dtype
+            # (td._family_suggest_core)
+            Bd, Ad = [t.to(dtype) for t in B], [t.to(dtype) for t in A]
+            lo_d, hi_d, q_d = (t.to(dtype) for t in (lo, hi, qq))
+            if st["quantized"] and st["n_buckets"] > 0:
+                raw_lo = torch.exp(lo_d) if st["log_scale"] else lo_d
+                qe = q_d.clamp(min=td.EPS)
+                j0 = torch.floor(raw_lo / qe) - 1.0
+                grid = qe[:, None] * (j0[:, None] + torch.arange(st["n_buckets"]))
+                g = (gmm_ops.gmm_lpdf(grid, *Bd, lo_d, hi_d, q_d, st["log_scale"], True)
+                     - gmm_ops.gmm_lpdf(grid, *Ad, lo_d, hi_d, q_d, st["log_scale"], True))
+                idx = (torch.round(cands.to(dtype) / qe[:, None])
+                       - j0[:, None]).clamp(0, st["n_buckets"] - 1)
+                s = g.gather(1, idx.to(torch.int64))
+            elif st["quantized"] or st["scorer"] == "exact":
+                x = cands.to(dtype)
+                s = (gmm_ops.gmm_lpdf(x, *Bd, lo_d, hi_d, q_d, st["log_scale"], st["quantized"])
+                     - gmm_ops.gmm_lpdf(x, *Ad, lo_d, hi_d, q_d, st["log_scale"], st["quantized"]))
+            else:
+                z = torch.log(cands.clamp(min=td.EPS)) if st["log_scale"] else cands
+                z, params = z.to(dtype).contiguous(), pair_params(*Bd, *Ad).contiguous()
+                if at is None:
+                    s = pair_score(z, params, B[0].shape[1])
+                else:
+                    s = torch.full(z.shape, float("nan"), dtype=dtype)
+                    for c0 in sorted({int(a) // PAIR_CHUNK * PAIR_CHUNK for a in at}):
+                        zc = z[:, c0:c0 + PAIR_CHUNK].contiguous()
+                        s[:, c0:c0 + PAIR_CHUNK] = pair_score(zc, params, B[0].shape[1])
+            raw = fam.from_fit_space(i, cands[i].numpy())
+        k, n_cand = st["k"], st["n_cand"]
+        return (np.asarray(raw).reshape(k, n_cand),
+                s[i].numpy().reshape(k, n_cand))
     raise KeyError(label)
 
 

@@ -41,19 +41,21 @@ generators; a test can hand in the reference's own streams instead.
 from __future__ import annotations
 
 import math
+import time
 import weakref
 from functools import wraps
 
 import numpy as np
 import torch
 
-from ..device import on_suggest_stream, resolve_device, upload
+from ..device import drop_suggest_streams, on_suggest_stream, resolve_device, upload
 from ..diagnostics import D_EI_TOP_K, DIAG_COLS
-from ..ops import fused_kernel
+from ..ops import fused_kernel, kernel_build
 from ..ops import gmm as gmm_ops
 from ..ops import parzen as parzen_ops
 from ..ops.pair_kernel import pair_score_batched
 from ..ops.score import pair_params, pair_score
+from ..resilience.device import mark_device_error
 
 EPS = 1e-12
 _BIG = np.float32(np.finfo(np.float32).max)
@@ -470,6 +472,26 @@ def device_history_for(trials, space, device):
     return dh
 
 
+def reset_device_state():
+    """Drop every piece of device-resident suggest state this plane
+    holds: the ``DeviceHistory`` mirrors (per trials/space/device), the
+    per-card suggest streams, and the caching allocator's free blocks.
+
+    Called by :class:`hyperopt_tpu_torch.resilience.device.DeviceRecovery`
+    after a CUDA error.  The host-side ``_TrialsHistory`` remains the
+    source of truth: the next suggest makes a new ``DeviceHistory`` and
+    re-uploads from it (one full rebuild, the cost of a bucket-boundary
+    rebuild).  The readback buffers are pinned per dispatch, never
+    cached, so there is none to drop.  Reference:
+    ``hyperopt_tpu/algos/tpe_device.py:546-563``."""
+    _cache.clear()
+    drop_suggest_streams()
+    if torch.cuda.is_initialized():
+        # raises under a sticky CUDA error; the recovery logs it and
+        # counts the retry's failure against its budget
+        torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------
 # Family programs
 # ---------------------------------------------------------------------
@@ -719,13 +741,33 @@ def _multi_sig(requests):
     return tuple((kind, tuple(sorted(st.items()))) for kind, _, st in requests)
 
 
-# Observer hook (the chaos harness's device-error site,
-# ``resilience.chaos``).  Empty by default: the only overhead is a
-# truthiness check.  Each observer fires on the launching thread once per
-# dispatch with the raw request list, before any launch; an exception it
-# raises fails the dispatch.  Reference: ``hyperopt_tpu/algos/
-# tpe_device.py:1053`` (fired at ``:1289``).
+# Observer hook (the chaos harness's device-error site, ``resilience.
+# chaos``, and the roofline profiler, ``hyperopt_tpu_torch.profiling``).
+# Empty by default: the only overhead is a truthiness check.  Each
+# observer fires on the launching thread once per dispatch with the raw
+# request list, before any launch; an exception it raises fails the
+# dispatch.  An observer that RETURNS a callable gets it invoked when that
+# dispatch's readback resolves, with a timing event ``{n_requests,
+# compiled, launch_s, wait_s, readback_s, device_s, out_bytes}`` (or
+# ``{error: True, n_requests, compiled}`` when the readback fails).  A
+# dispatch whose resolver is never called (a discarded speculation) fires
+# no completion.  Reference: ``hyperopt_tpu/algos/tpe_device.py:1038-1053``
+# (fired at ``:1289-1296``, completed at ``:1325-1370``).
 _suggest_observers = []
+
+
+def _start_readback(flat_dev):
+    """The flat result on its way to the host: ``(host tensor, event)``.
+    On the card a copy into pinned memory that does not wait, and an event
+    recorded after it on the current stream (the one wait is the
+    resolver's); on the CPU the tensor itself and no event."""
+    if not flat_dev.is_cuda:
+        return flat_dev, None
+    host = torch.empty(flat_dev.shape, dtype=torch.float32, pin_memory=True)
+    host.copy_(flat_dev, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    return host, done
 
 
 def multi_family_suggest_async(requests):
@@ -740,36 +782,99 @@ def multi_family_suggest_async(requests):
     its ``.diag``.  (Index winners ride the f32 concat exactly: category
     indices are tiny integers, far inside f32's 2^24 exact-integer
     range.)  Safe against later history appends: they go on the same
-    stream, after this suggest's reads.  Reference:
-    ``hyperopt_tpu/algos/tpe_device.py:1271-1386``."""
+    stream, after this suggest's reads.
+
+    A failure of a launch, or of the readback's wait (where the card
+    reports a kernel's fault), raises tagged by
+    :func:`~hyperopt_tpu_torch.resilience.device.mark_device_error`, so
+    the device recovery sees it whatever its type.
+
+    The completion event's timings (see ``_suggest_observers``):
+    ``launch_s`` is the host time of the launches, ``wait_s`` the host
+    time between the last launch and the resolver's call, ``readback_s``
+    the resolver's wait and copy.  ``device_s`` on the card is the time
+    between two CUDA events on the suggest stream, recorded before the
+    first launch and after the last one: the card's span of the dispatch,
+    which also counts the gaps where the card waits for the host's next
+    launch.  On the CPU it is the reference's host-observed figure
+    (launch to readback when the resolver follows at once, else launch
+    plus readback), so CPU runs of both packages compare like with like.
+    Reference: ``hyperopt_tpu/algos/tpe_device.py:1271-1386``."""
+    done_cbs = None
     if _suggest_observers:
         for obs in list(_suggest_observers):
-            obs(requests)
+            cb = obs(requests)
+            if callable(cb):
+                if done_cbs is None:
+                    done_cbs = []
+                done_cbs.append(cb)
     dev = requests[0][1][1].device  # every request's obs lies on one device
-    with on_suggest_stream(dev):
-        outs = [
-            (_family_suggest_core if kind == "cont" else _index_family_suggest_core)(
-                *args, **st
+    timed = done_cbs is not None and dev.type == "cuda"
+    n_loaded = kernel_build.n_loaded()
+    t_launch0 = time.perf_counter()
+    try:
+        with on_suggest_stream(dev):
+            if timed:
+                ev0 = torch.cuda.Event(enable_timing=True)
+                ev1 = torch.cuda.Event(enable_timing=True)
+                ev0.record()
+            outs = [
+                (_family_suggest_core if kind == "cont" else _index_family_suggest_core)(
+                    *args, **st
+                )
+                for kind, args, st in requests
+            ]
+            flat_dev = torch.cat(
+                [part.to(torch.float32).reshape(-1) for win, diag in outs
+                 for part in (win, diag)]
             )
-            for kind, args, st in requests
-        ]
-        flat_dev = torch.cat(
-            [part.to(torch.float32).reshape(-1) for win, diag in outs
-             for part in (win, diag)]
-        )
-        if flat_dev.is_cuda:
-            host = torch.empty(flat_dev.shape, dtype=torch.float32, pin_memory=True)
-            host.copy_(flat_dev, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record()
-        else:
-            host, done = flat_dev, None
+            if timed:
+                ev1.record()
+            host, done = _start_readback(flat_dev)
+    except Exception as e:
+        raise mark_device_error(e)
+    t_launch1 = time.perf_counter()
+    # a dispatch that loaded (at first use, built) a kernel library timed
+    # that too: the profiler keeps it out of its steady-state means
+    compiled = kernel_build.n_loaded() != n_loaded
     shapes = [(win.shape[0], st["k"]) for (win, _), (_, _, st) in zip(outs, requests)]
 
     def resolve():
-        if done is not None:
-            done.synchronize()  # the one wait for the card
-        flat = host.numpy()
+        t_read0 = time.perf_counter()
+        try:
+            if done is not None:
+                done.synchronize()  # the one wait for the card
+            flat = host.numpy()
+        except Exception as e:
+            if done_cbs is not None:
+                # bounded consumers (the profiler capture's dispatch
+                # budget) must see the failed dispatch too
+                event = {"error": True, "n_requests": len(requests), "compiled": compiled}
+                for cb in done_cbs:
+                    try:
+                        cb(event)
+                    except Exception:
+                        pass
+            raise mark_device_error(e)
+        if done_cbs is not None:
+            t_read1 = time.perf_counter()
+            wait_s = max(t_read0 - t_launch1, 0.0)
+            if timed:
+                device_s = ev0.elapsed_time(ev1) * 1e-3
+            else:
+                device_s = ((t_read1 - t_launch0) if wait_s < 0.005
+                            else (t_launch1 - t_launch0) + (t_read1 - t_read0))
+            event = {
+                "n_requests": len(requests),
+                "compiled": compiled,
+                "launch_s": t_launch1 - t_launch0,
+                "wait_s": wait_s,
+                "readback_s": t_read1 - t_read0,
+                "device_s": device_s,
+                "out_bytes": int(flat.nbytes),
+            }
+            for cb in done_cbs:
+                cb(event)  # observer callbacks must not raise
         wins, diags, off = [], [], 0
         for L, k in shapes:
             wins.append(flat[off: off + L * k].reshape(L, k))

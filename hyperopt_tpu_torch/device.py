@@ -48,6 +48,13 @@ def suggest_stream(device):
     return stream
 
 
+def drop_suggest_streams():
+    """Forget every card's suggest stream (the device recovery's reset):
+    the next suggest makes a new one.  Work queued on an old stream runs
+    on; nothing launches there again."""
+    _streams.clear()
+
+
 def on_suggest_stream(device):
     """A context that makes :func:`suggest_stream` the calling thread's
     current stream (nothing for the CPU)."""

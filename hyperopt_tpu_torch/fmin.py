@@ -47,7 +47,9 @@ from .base import (
     validate_loss_threshold,
     validate_timeout,
 )
-from .observability import FaultStats, SpeculationStats
+from .exceptions import InvalidSpaceError
+from .observability import FaultStats, PhaseTimings, SpeculationStats
+from .resilience.device import DeviceRecovery
 from .resilience.retry import TrialQuarantined, execute_with_retry
 from .utils import coarse_utcnow
 
@@ -68,9 +70,7 @@ def _default_max_speculation():
     return int(os.environ.get("HYPEROPT_MAX_SPECULATION", "1"))
 
 
-def _check_unported(validate_space, trials_save_file):
-    if validate_space:
-        _not_ported("validate_space=True", "queue A item 10, analysis/ space lint")
+def _check_unported(trials_save_file):
     if str(trials_save_file).endswith(".orbax"):
         _not_ported("trials_save_file='*.orbax'", "queue A item 6, checkpoint.py")
 
@@ -152,7 +152,7 @@ class FMinIter:
         fault_stats=None,
         search_stats=None,
     ):
-        _check_unported(False, trials_save_file)
+        _check_unported(trials_save_file)
         self.algo = algo
         self.domain = domain
         self.trials = trials
@@ -160,8 +160,14 @@ class FMinIter:
         if max_speculation is None:
             max_speculation = _default_max_speculation()
         self.max_speculation = max_speculation
+        self.timings = PhaseTimings()
         self.speculation_stats = SpeculationStats()
         self.fault_stats = fault_stats if fault_stats is not None else FaultStats()
+        # wraps every suggest dispatch: a CUDA error (out of memory, a
+        # failed launch or readback) triggers a bounded re-initialization
+        # of the device state and a retry, then propagates; never a CPU
+        # fallback (see hyperopt_tpu_torch.resilience.device)
+        self.device_recovery = DeviceRecovery(stats=self.fault_stats)
         self._engine = None
         if asynchronous is None:
             self.asynchronous = trials.asynchronous
@@ -333,13 +339,15 @@ class FMinIter:
                     # overlap window: launch speculative suggests while the
                     # objective runs; the card computes in the background
                     engine.speculate(limit=budget)
-                except Exception:
+                except Exception as spec_err:
                     # speculation is an optimization: a failed launch must
                     # not discard the objective's result or leave the
                     # trial RUNNING; drop the speculations and go on
-                    # serially (the synchronous suggest raises if the card
-                    # fails again)
+                    # serially.  A device error also re-initializes the
+                    # device state through the recovery (else the
+                    # synchronous recompute meets the same failure)
                     logger.exception("speculative dispatch failed; continuing serially")
+                    self.device_recovery.absorb(spec_err)
                     engine.discard()
             finally:
                 # even a non-Exception failure must not abandon the trial
@@ -431,6 +439,7 @@ class FMinIter:
                     algo, self.domain, trials, self.rstate,
                     max_speculation=self.max_speculation,
                     stats=self.speculation_stats,
+                    device_recovery=self.device_recovery,
                 )
             engine = self._engine
             if engine.policy == "strict":
@@ -478,12 +487,18 @@ class FMinIter:
                     if engine is not None:
                         # a validated speculation when one is pending
                         # (readback only), else computed in line
-                        new_trials, new_ids = engine.next_batch(n_to_enqueue)
+                        with self.timings.phase("suggest"):
+                            new_trials, new_ids = engine.next_batch(n_to_enqueue)
                     else:
                         new_ids = trials.new_trial_ids(n_to_enqueue)
                         self.trials.refresh()
                         seed = self.rstate.integers(2 ** 31 - 1)
-                        new_trials = algo(new_ids, self.domain, trials, seed)
+                        with self.timings.phase("suggest"):
+                            # a CUDA error re-initializes and retries
+                            # (bounded) rather than abort the run
+                            new_trials = self.device_recovery.run(
+                                lambda: algo(new_ids, self.domain, trials, seed)
+                            )
                     # the suggest's search-health snapshot (None for
                     # random/startup suggests), published on this thread
                     self.search_stats.record_suggest(diagnostics.last_suggest_diag())
@@ -509,19 +524,22 @@ class FMinIter:
                             # prefetch the next suggestion(s) while the
                             # backend's workers evaluate
                             engine.speculate(limit=N - n_queued)
-                        except Exception:
+                        except Exception as spec_err:
                             logger.exception(
                                 "speculative dispatch failed; continuing "
                                 "without prefetch"
                             )
+                            self.device_recovery.absorb(spec_err)
                             engine.discard()
                     # wait for workers to fill in the trials
                     time.sleep(self.poll_interval_secs)
-                elif engine is not None:
-                    self._serial_evaluate_pipelined(engine, budget=N - n_queued)
                 else:
                     # run the trials synchronously in this process
-                    self.serial_evaluate()
+                    with self.timings.phase("evaluate"):
+                        if engine is not None:
+                            self._serial_evaluate_pipelined(engine, budget=N - n_queued)
+                        else:
+                            self.serial_evaluate()
 
                 self.trials.refresh()
                 # this round's completions (OK losses, NaN included, and
@@ -582,6 +600,7 @@ class FMinIter:
                 self.block_until_done()
             self.trials.refresh()
             if self.verbose:
+                self.timings.log_summary(logging.DEBUG)
                 if engine is not None:
                     self.speculation_stats.log_summary(logging.DEBUG)
                 self.fault_stats.log_summary(logging.DEBUG)
@@ -656,12 +675,33 @@ def fmin(
     recovery events into; by default the driver owns a private one,
     ``FMinIter.fault_stats``, which its ``SearchStats`` also reads.
 
-    ``validate_space=True`` and a ``trials_save_file`` ending in
-    ``.orbax`` raise ``NotImplementedError`` (their subsystems are not
-    ported yet).  A plain ``trials_save_file`` is a pickle checkpoint the
-    next run resumes from.
+    ``validate_space=True`` runs the static space lint
+    (:func:`hyperopt_tpu_torch.analysis.lint_space`) before the first
+    trial: error-severity findings (duplicate labels, inverted bounds,
+    float32-overflowing log ranges, ...) raise
+    :class:`~hyperopt_tpu_torch.exceptions.InvalidSpaceError` before any
+    work on the card, instead of a NaN on the card many trials in, and
+    warnings are logged.  Off by default, as in the reference.
+
+    A ``trials_save_file`` ending in ``.orbax`` raises
+    ``NotImplementedError`` (not ported yet).  A plain
+    ``trials_save_file`` is a pickle checkpoint the next run resumes from.
     """
-    _check_unported(validate_space, trials_save_file)
+    _check_unported(trials_save_file)
+    if validate_space:
+        from .analysis import Severity, lint_space
+
+        diags = lint_space(space)
+        errors = [d for d in diags if d.severity == Severity.ERROR]
+        for d in diags:
+            if d.severity != Severity.ERROR:
+                logger.warning("space lint: %s", d.format())
+        if errors:
+            raise InvalidSpaceError(
+                "search space failed validation:\n"
+                + "\n".join(d.format() for d in errors),
+                diagnostics=diags,
+            )
 
     if algo is None:
         from .algos import tpe

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..device import on_suggest_stream
+from ..resilience.device import mark_device_error
 from . import kernel_build
 from .gmm import draw_from_rows, draw_param_rows  # noqa: F401  (draw_param_rows: API)
 from .score import effective_scorer, env_bool, pair_params, pair_score
@@ -125,7 +126,10 @@ def _launch(u_comp, u_val, draw_params, params, k_below, k, n_top, log_scale,
             L, k, n_cand, params.shape[2], k_below, n_top, int(log_scale),
             int(draw_in_kernel), stream)
     if err != 0:
-        raise RuntimeError(f"fused_suggest kernel launch failed: CUDA error {err}")
+        # a device-plane failure whatever its type: the recovery layer
+        # (resilience.device) must see the card's own kernel failures
+        raise mark_device_error(
+            RuntimeError(f"fused_suggest kernel launch failed: CUDA error {err}"))
     return win, best_idx, seg_m, seg_s, seg_top
 
 

@@ -91,6 +91,11 @@ def build(names) -> dict:
     return report
 
 
+def n_loaded() -> int:
+    """How many kernel libraries this process has loaded so far."""
+    return len(_loaded)
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built first if needed."""
     lib = _loaded.get(name)

@@ -20,6 +20,7 @@ import ctypes
 
 import torch
 
+from ..resilience.device import mark_device_error
 from . import kernel_build
 from .score import effective_scorer, pair_score
 
@@ -77,7 +78,10 @@ def _launch(z, params, k_below, fn=None):
         err = (fn or _lib())(z.data_ptr(), params.data_ptr(), out.data_ptr(),
                              L, C, params.shape[2], k_below, stream)
     if err != 0:
-        raise RuntimeError(f"pair_score kernel launch failed: CUDA error {err}")
+        # a device-plane failure whatever its type: the recovery layer
+        # (resilience.device) must see the card's own kernel failures
+        raise mark_device_error(
+            RuntimeError(f"pair_score kernel launch failed: CUDA error {err}"))
     return out
 
 

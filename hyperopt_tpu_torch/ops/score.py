@@ -85,6 +85,43 @@ def effective_scorer(z) -> str:
 SCORERS = ("pallas", "xla", "fused", "exact")
 
 
+def pair_score_cost(n_cand: int, k_total: int, scorer: str) -> dict:
+    """{flops, mxu_flops, bytes} model of one pair-scorer invocation at C
+    candidates x K total mixture components, per scorer tier (the
+    reference's model, ``hyperopt_tpu/ops/score.py:105``):
+
+    - every tier: the rank-3 product is 2·3·C·K FLOPs (``mxu_flops``, the
+      subset the reference's MFU is defined against; the port runs it as
+      FMAs on CUDA cores) and the two logsumexps add ~4 FLOPs per cell;
+    - ``xla`` (the plain :func:`pair_score`) materializes the ``[C, K]``
+      component matrix, so its traffic charges a write and a read of it;
+    - ``pallas`` (the pair-score kernel, ``ops.pair_kernel``) accumulates
+      the logsumexp on chip and never materializes it: traffic is the
+      candidates, the parameter block and the output;
+    - ``fused`` (``ops.fused_kernel``) also keeps candidates and scores on
+      chip: traffic is the two uniform streams, the parameter block and
+      the per-id winners, plus ~40 FLOPs per candidate of draw and
+      selection.
+
+    The one difference from the reference: it demotes ``pallas`` and
+    ``fused`` to ``xla`` below a TPU-measured K crossover when no tier is
+    forced; the port has no crossover, so the tier is taken as given.
+    ``hyperopt_tpu_torch.profiling`` builds its analytical cost on this.
+    """
+    C, K = float(n_cand), float(k_total)
+    mxu = 2.0 * 3.0 * C * K
+    flops = mxu + 4.0 * C * K
+    if scorer == "fused":
+        flops += 40.0 * C
+        nbytes = 4.0 * (2.0 * C + 3.0 * K)
+        return {"flops": flops, "mxu_flops": mxu, "bytes": nbytes}
+    # z read + features + output, params [3, K]
+    nbytes = 4.0 * (3.0 * C + 3.0 * K)
+    if scorer != "pallas":
+        nbytes += 2.0 * C * K * 4.0  # comp matrix write + read
+    return {"flops": flops, "mxu_flops": mxu, "bytes": nbytes}
+
+
 def env_bool(name: str):
     """Tri-state env flag: True/False when set (``1/true/yes/on`` are
     true), None when unset."""
@@ -122,7 +159,11 @@ def _logsumexp_rows(comp):
     return m_safe + torch.log(s.clamp(min=1e-300))
 
 
-def pair_score(z, params, k_below: int, chunk: int = 4096):
+# candidates per chunk of the plain pair score: one [L, chunk, K] product
+PAIR_CHUNK = 4096
+
+
+def pair_score(z, params, k_below: int, chunk: int = PAIR_CHUNK):
     """``log l − log g`` (up to an additive constant) for candidates ``z``.
 
     ``z``: ``[L, C]``; ``params``: ``[L, 3, Kb+Ka]`` from

@@ -550,7 +550,8 @@ class FileJobs:
             if stats is not None:
                 # the native scan still reads every directory entry —
                 # it is FASTER, not O(1); the scan counter says so
-                stats.record_scan(sum(counts.values()))
+                # (the native scan's counts are a list, one per state)
+                stats.record_scan(sum(counts))
             return {s: counts[s] for s in JOB_STATES}
         counts = {s: 0 for s in JOB_STATES}
         for doc in self.all_docs():

@@ -152,7 +152,7 @@ class TorchTrials(Trials):
         from ..fmin import _check_unported
         from ..fmin import fmin as _fmin
 
-        _check_unported(False, trials_save_file)
+        _check_unported(trials_save_file)
         assert (
             not pass_expr_memo_ctrl
         ), "TorchTrials executes objectives outside the driver; plain configs only"

@@ -1,9 +1,10 @@
 """Pipelined speculative suggest engine.
 
-Reference parity: ``hyperopt_tpu/pipeline.py``, without the device
-recovery layer (ROADMAP.md, queue A item 8): a speculative launch or
-readback that fails is logged and discarded, and the suggest is computed
-again synchronously, on the card, where a second failure raises.
+Reference parity: ``hyperopt_tpu/pipeline.py``.  A speculative launch or
+readback that fails is logged and discarded, the driver's
+:class:`~hyperopt_tpu_torch.resilience.device.DeviceRecovery` absorbs the
+error (a bounded re-initialization of the device state), and the suggest
+is computed again synchronously on the card, under that recovery.
 
 The serial fmin loop adds suggest time and objective time: ``FMinIter``
 blocks on the objective for trial *t* before the device program for trial
@@ -177,7 +178,7 @@ class SpeculativeSuggestEngine:
     """
 
     def __init__(self, algo, domain, trials, rstate, max_speculation=1,
-                 stats=None):
+                 stats=None, device_recovery=None):
         if max_speculation < 0:
             raise ValueError(f"max_speculation must be >= 0, got {max_speculation}")
         self.algo = algo
@@ -186,6 +187,13 @@ class SpeculativeSuggestEngine:
         self.rstate = rstate
         self.max_speculation = int(max_speculation)
         self.stats = stats if stats is not None else SpeculationStats()
+        # optional resilience.device.DeviceRecovery: the engine's
+        # SYNCHRONOUS suggest calls (a miss, or the recompute after a
+        # failed speculative readback) run through it, so a CUDA error
+        # re-initializes and retries instead of aborting the run;
+        # speculative launches stay unwrapped (their failures already
+        # degrade to the serial protocol, whose recompute lands here)
+        self.device_recovery = device_recovery
         self.policy, self.policy_params = _policy_for(algo)
         self._algo_async = _async_variant(algo)
         # The serial fmin loop calls the engine from one thread, but the
@@ -343,7 +351,7 @@ class SpeculativeSuggestEngine:
             t0 = time.perf_counter()
             try:
                 resolve, snap = self._launch_spec(sp.ids, sp.seed)
-            except Exception:
+            except Exception as launch_err:
                 # relaunch dispatch failed (device error): park this and
                 # every later stale speculation's (ids, seed) in order —
                 # the next launch or synchronous suggest re-uses them, so
@@ -352,6 +360,8 @@ class SpeculativeSuggestEngine:
                     "relaunch dispatch failed; falling back to "
                     "synchronous recompute"
                 )
+                if self.device_recovery is not None:
+                    self.device_recovery.absorb(launch_err)
                 for sp2 in stale[j:]:
                     # safe: _validate's only callers (speculate,
                     # next_batch) hold _dispatch_lock around the call
@@ -368,7 +378,12 @@ class SpeculativeSuggestEngine:
 
     # -- dispatch ------------------------------------------------------
     def _call_algo_sync(self, ids, seed):
-        """The serial protocol's exact algo call."""
+        """The serial protocol's exact algo call, under device recovery
+        when the driver provided one."""
+        if self.device_recovery is not None:
+            return self.device_recovery.run(
+                lambda: self.algo(ids, self.domain, self.trials, seed)
+            )
         return self.algo(ids, self.domain, self.trials, seed)
 
     def _launch(self, ids, seed):
@@ -492,18 +507,19 @@ class SpeculativeSuggestEngine:
                 try:
                     out = sp.resolve()
                     self.stats.record_resolve(time.perf_counter() - t0)
-                except Exception:
+                except Exception as readback_err:
                     # the card reports a kernel's fault at the readback's
                     # wait; a speculation-only failure must not abort a
                     # run that would have completed serially — drop every
                     # in-flight speculation and recompute this one
                     # synchronously with ITS ids and seed (the serial
-                    # protocol's exact call), which raises if the card
-                    # fails again
+                    # protocol's exact call)
                     logger.exception(
                         "speculative readback failed; recomputing "
                         "synchronously"
                     )
+                    if self.device_recovery is not None:
+                        self.device_recovery.absorb(readback_err)
                     self.discard()
                     t1 = time.perf_counter()
                     out = self._call_algo_sync(sp.ids, sp.seed)

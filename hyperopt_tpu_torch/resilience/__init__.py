@@ -12,18 +12,31 @@ FileTrials path imports:
   leases; a driver-side :class:`~.leases.LeaseReaper` reclaims expired
   leases with attempt counters.
 - :mod:`.device` — the device-error taxonomy over the CUDA error
-  families (``DeviceRecovery`` is not ported yet).
+  families, and :class:`~.device.DeviceRecovery`: bounded
+  re-initialization of the device state around a suggest dispatch, then
+  the error propagates (no CPU fallback).
 - :mod:`.chaos` — deterministic, seed-reproducible fault injection
   (worker kills, torn locks, delayed/duplicated results, objective
   exceptions/NaNs/hangs, synthetic device errors, and the service-plane
   sites).
 
-Not ported yet (ROADMAP.md, queue A): ``DeviceRecovery``, ``fsck`` and
-the service client's circuit breaker.  All recovery events flow into
-:class:`hyperopt_tpu_torch.observability.FaultStats` counters.
+- :mod:`.fsck` — offline detect-and-repair for a FileTrials queue
+  directory (torn docs and segments, orphan leases and locks, duplicate
+  tids, tmp droppings, a broken id allocator);
+  ``python -m hyperopt_tpu_torch.resilience.fsck``.  Its names load at
+  first use, so ``python -m`` runs the module once.
+
+Not ported yet (ROADMAP.md, queue A item 5): the service-root checks of
+``fsck`` and the service client's circuit breaker.  All recovery events
+flow into :class:`hyperopt_tpu_torch.observability.FaultStats` counters.
 """
 
-from .device import SyntheticDeviceError, is_device_error, mark_device_error
+from .device import (
+    DeviceRecovery,
+    SyntheticDeviceError,
+    is_device_error,
+    mark_device_error,
+)
 from .leases import LeaseHeartbeat, LeaseReaper
 from .retry import (
     RetryPolicy,
@@ -34,7 +47,20 @@ from .retry import (
     run_with_timeout,
 )
 
+_FSCK_NAMES = ("FsckReport", "fsck_path", "fsck_queue")
+
+
+def __getattr__(name):
+    if name in _FSCK_NAMES:
+        from . import fsck
+
+        return getattr(fsck, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 __all__ = [
+    "DeviceRecovery",
+    "FsckReport",
     "LeaseHeartbeat",
     "LeaseReaper",
     "RetryPolicy",
@@ -43,6 +69,8 @@ __all__ = [
     "TrialTimeout",
     "backoff_delay",
     "execute_with_retry",
+    "fsck_path",
+    "fsck_queue",
     "is_device_error",
     "mark_device_error",
     "run_with_timeout",

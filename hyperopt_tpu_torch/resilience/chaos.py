@@ -36,9 +36,10 @@ Injected fault classes:
   fit.
 - **synthetic device errors** — :class:`SyntheticDeviceError` raised
   from a ``tpe_device`` suggest-dispatch observer.  Recovery: the
-  speculative engine discards a failed speculation and recomputes it
-  once synchronously; a second failure raises (the port has no device
-  re-initialization yet).
+  driver's ``DeviceRecovery`` re-initializes the device state (at most
+  ``max_reinits`` consecutive times, then the error propagates; no CPU
+  fallback), and the speculative engine recomputes a failed speculation
+  synchronously with its ids and seed.
 
 Service-plane fault classes, aimed at the optimization
 server's HTTP edge and its crash-consistent store:

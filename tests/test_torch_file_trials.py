@@ -1035,9 +1035,11 @@ def _write_port_docs(trials):
 
 def test_entry_points_import_no_jax():
     """``from hyperopt_tpu_torch import FileTrials, MongoTrials,
-    SparkTrials`` and ``python -m hyperopt_tpu_torch.parallel.worker
-    --help`` import neither ``jax`` nor ``hyperopt_tpu`` (fresh
-    interpreter); the migration stubs point to the port's backends."""
+    SparkTrials``, the space lint, the telemetry and profiler modules, the
+    device recovery and the queue fsck, and ``python -m
+    hyperopt_tpu_torch.parallel.worker --help`` import neither ``jax`` nor
+    ``hyperopt_tpu`` (fresh interpreter); the migration stubs point to the
+    port's backends."""
     code = (
         "import runpy, sys\n"
         "from hyperopt_tpu_torch import FileTrials, MongoTrials, SparkTrials\n"
@@ -1047,6 +1049,8 @@ def test_entry_points_import_no_jax():
         "        stub()\n"
         "    except NotImplementedError as e:\n"
         "        assert hint in str(e), e\n"
+        "from hyperopt_tpu_torch import analysis, observability, profiling\n"
+        "from hyperopt_tpu_torch.resilience import DeviceRecovery, fsck_queue\n"
         "sys.argv = ['hyperopt-tpu-torch-worker', '--help']\n"
         "try:\n"
         "    runpy.run_module('hyperopt_tpu_torch.parallel.worker', run_name='__main__')\n"

@@ -396,3 +396,88 @@ def test_file_trials_with_threaded_workers_on_card(cuda, monkeypatch, tmp_path):
     # Trials' suggest, then 8 seeds against the CPU
     assert calls and all(launched == 2 * 9 for _, launched in calls), calls
     cs.assert_agreement(tally["pairs"], tally["close"], tally["ties"])
+
+
+def _pipelined_run(T, cs, observer=None, n=6):
+    """The pipelined fmin (k=1) over bench.py's space at a 300-trial
+    history and 1024 candidates, ``observer`` on the suggest dispatches."""
+    from functools import partial
+
+    from hyperopt_tpu_torch.algos import tpe_device
+
+    trials = cs.prefilled_trials(T, 300)
+    it = T.FMinIter(partial(T.tpe.suggest, n_EI_candidates=1024),
+                    T.Domain(cs.bench_objective, cs.bench_space(T.hp)), trials,
+                    rstate=np.random.default_rng(0), max_evals=300 + n,
+                    show_progressbar=False, max_speculation=1)
+    if observer is not None:
+        tpe_device._suggest_observers.append(observer)
+    try:
+        it.exhaust()
+    finally:
+        if observer is not None:
+            tpe_device._suggest_observers.remove(observer)
+    return it, [d["misc"]["vals"] for d in trials.trials[300:]]
+
+
+def test_device_recovery_with_a_real_oom_on_card(cuda, monkeypatch):
+    """A genuine ``torch.cuda.OutOfMemoryError`` (an allocation past the
+    card's memory) inside the first suggest dispatch: the recovery
+    re-initializes once, the run goes on and its trials equal a fault-free
+    run's."""
+    import chip_smoke as cs
+    import hyperopt_tpu_torch as T
+
+    monkeypatch.setenv("HYPEROPT_TPU_SCORER", "pallas")  # no probe: the pair-score kernel
+    _, ref = _pipelined_run(T, cs)
+    seen = []
+
+    def oom_once(requests):
+        seen.append(requests[0][1][1].device)
+        if len(seen) == 1:
+            # past the card's whole memory: no cached block a retry frees
+            # can make room for it
+            _, total = torch.cuda.mem_get_info()
+            torch.empty(total + (1 << 30), dtype=torch.uint8, device="cuda")
+
+    it, vals = _pipelined_run(T, cs, oom_once)
+    assert vals == ref
+    assert it.fault_stats.counts() == {"device_error": 1, "device_reinit": 1}
+    assert it.fault_stats.get("cpu_fallback") == 0
+    assert all(d.type == "cuda" for d in seen)
+
+
+def test_profiler_device_seconds_from_cuda_events_on_card(cuda, monkeypatch):
+    """On the card the profiler's ``device_s`` is the span of two CUDA
+    events on the suggest stream around the dispatch's launches: positive,
+    and no longer than the host-observed launch-to-readback time."""
+    import chip_smoke as cs
+    import hyperopt_tpu_torch as T
+    from hyperopt_tpu_torch import profiling
+    from hyperopt_tpu_torch.algos import tpe_device
+    from hyperopt_tpu_torch.observability import DeviceStats
+
+    monkeypatch.setenv("HYPEROPT_TPU_SCORER", "pallas")
+    trials = cs.prefilled_trials(T, 300)
+    domain = T.Domain(cs.bench_objective, cs.bench_space(T.hp))
+    events = []
+
+    def also_events(requests):
+        return events.append
+
+    stats = DeviceStats()
+    T.tpe.suggest([300], domain, trials, 0, n_EI_candidates=1024)  # history upload
+    with profiling.DeviceProfiler(stats=stats):
+        tpe_device._suggest_observers.append(also_events)
+        try:
+            for i in range(3):
+                T.tpe.suggest([301 + i], domain, trials, 1 + i, n_EI_candidates=1024)
+                rec = profiling.last_dispatch_record()
+                ev = events[-1]
+                host_s = ev["launch_s"] + ev["wait_s"] + ev["readback_s"]
+                assert 0 < rec["device_s"] <= host_s, (rec["device_s"], host_s)
+                assert rec["devices"] == ["cuda:0"] and rec["binding_ceiling"]
+        finally:
+            tpe_device._suggest_observers.remove(also_events)
+    assert stats.n_dispatches == 3
+    assert stats.summary()["memory"]["backend_peak_bytes"] > 0

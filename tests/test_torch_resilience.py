@@ -3,11 +3,14 @@ the JAX package's ``tests/test_resilience.py`` run against the port —
 retry policy, heartbeat leases and the reaper, in-place worker retries,
 the worker CLI, the seeded chaos harness, and the crash-recovery gate
 (workers killed mid-trial under a chaos seed finish the same trials as a
-fault-free run) — except its device-recovery, service-plane, circuit-
-breaker and replica-lease cases, which wait for their modules.  Then the
-retry and chaos schedules against the JAX package's at the same seed,
-the CUDA error taxonomy, and a worker process's graceful shutdown, each
-signal sent only after the worker says it is ready.
+fault-free run), and its device-recovery cases — except its
+service-plane, circuit-breaker and replica-lease cases, which wait for
+their modules.  The reference's CPU-fallback case becomes the port's: the
+budget's end raises and ``cpu_fallback`` stays 0.  Then the retry, chaos
+and device-recovery schedules against the JAX package's at the same seed,
+the CUDA error taxonomy (kernel launch and readback failures are device
+errors), the pipelined run's recovery, and a worker process's graceful
+shutdown, each signal sent only after the worker says it is ready.
 """
 
 import glob
@@ -40,6 +43,7 @@ from hyperopt_tpu_torch.observability import FaultStats
 from hyperopt_tpu_torch.parallel.file_trials import FileJobs, FileTrials
 from hyperopt_tpu_torch.parallel.worker import FileWorker, ReserveTimeout
 from hyperopt_tpu_torch.resilience import (
+    DeviceRecovery,
     LeaseReaper,
     RetryPolicy,
     SyntheticDeviceError,
@@ -850,10 +854,13 @@ def test_is_device_error_recognizes_the_cuda_families():
 @pytest.mark.parametrize("seed,recovers", [(3, True), (0, False)])
 def test_device_chaos_takes_the_recompute_path(seed, recovers):
     """Injected device errors at suggest dispatch: a failed speculation is
-    dropped and its suggest recomputed synchronously with the same ids and
-    seed, so the run goes on (seed 3: three injections, every trial DONE);
-    an injection on that recompute too raises (seed 0), the port's
-    contract until device recovery is ported."""
+    dropped, the device recovery re-initializes, and its suggest is
+    recomputed synchronously with the same ids and seed, so the run goes
+    on (seed 3: three injections, each absorbed by one re-initialization,
+    every trial DONE).  Three consecutive failures spend the recovery's
+    budget of two re-initializations, and the run raises (seed 0); the
+    reference would move its suggests to the CPU there, the port never
+    does."""
     from hyperopt_tpu_torch.algos import tpe, tpe_device
 
     algo = partial(tpe.suggest, device="cpu", n_startup_jobs=3, n_EI_candidates=16)
@@ -863,7 +870,8 @@ def test_device_chaos_takes_the_recompute_path(seed, recovers):
 
     def go():
         fmin(quad_objective, SPACE, algo=algo, max_evals=14, trials=trials,
-             rstate=np.random.default_rng(1), show_progressbar=False, verbose=False)
+             rstate=np.random.default_rng(1), show_progressbar=False, verbose=False,
+             fault_stats=stats)
 
     with active(monkey):
         assert len(tpe_device._suggest_observers) == 1
@@ -876,6 +884,265 @@ def test_device_chaos_takes_the_recompute_path(seed, recovers):
     assert stats.injected().get("device_error", 0) >= 2
     assert all(t["state"] == JOB_STATE_DONE for t in trials.trials)
     assert (len(trials) == 14) == recovers
+    assert stats.get("device_error") == stats.injected()["device_error"]
+    # each error re-initialized but the one that met a spent budget
+    assert stats.get("device_reinit") == stats.get("device_error") - (not recovers)
+    assert stats.get("cpu_fallback") == 0
+
+
+# ---------------------------------------------------------------------
+# device recovery (the reference's TestDeviceRecovery, on the port)
+# ---------------------------------------------------------------------
+
+
+class TestDeviceRecovery:
+    def test_is_device_error(self):
+        assert is_device_error(SyntheticDeviceError("x"))
+        assert not is_device_error(ValueError("x"))
+        e = ValueError("tagged")
+        e._hyperopt_device_error = True
+        assert is_device_error(e)
+
+    def test_transient_error_reinits_and_recovers(self):
+        stats = FaultStats()
+        rec = DeviceRecovery(max_reinits=2, stats=stats)
+        calls = {"n": 0}
+
+        def fn():
+            calls["n"] += 1
+            if calls["n"] == 1:
+                raise SyntheticDeviceError("preempted")
+            return "suggestion"
+
+        assert rec.run(fn) == "suggestion"
+        assert stats.get("device_error") == 1
+        assert stats.get("device_reinit") == 1
+        assert not rec.cpu_fallback_active
+        assert len(rec.reinit_seconds) == 1
+
+    def test_success_refills_consecutive_budget(self):
+        rec = DeviceRecovery(max_reinits=1, stats=FaultStats())
+        flaky = {"fail_next": True}
+
+        def fn():
+            if flaky["fail_next"]:
+                flaky["fail_next"] = False
+                raise SyntheticDeviceError("blip")
+            return 1
+
+        for _ in range(4):  # 4 scattered single faults, each recovers
+            flaky["fail_next"] = True
+            assert rec.run(fn) == 1
+        assert not rec.cpu_fallback_active
+        assert rec.n_reinits == 0  # refilled after each success
+
+    def test_persistent_failure_raises_at_the_budgets_end_without_cpu_fallback(self):
+        """The reference's ``test_persistent_failure_escalates_to_cpu_then_
+        raises`` on the port: no CPU step, so the budget's end raises."""
+        stats = FaultStats()
+        rec = DeviceRecovery(max_reinits=1, stats=stats)
+
+        def fn():
+            raise SyntheticDeviceError("dead device")
+
+        with pytest.raises(SyntheticDeviceError):
+            rec.run(fn)
+        assert stats.get("device_reinit") == 1
+        assert stats.get("cpu_fallback") == 0
+        assert not rec.cpu_fallback_active
+        assert stats.get("device_error") == 2  # reinit + exhausted
+
+    def test_non_device_error_passes_through(self):
+        rec = DeviceRecovery(stats=FaultStats())
+        with pytest.raises(KeyError):
+            rec.run(lambda: {}["missing"])
+        assert rec.stats.get("device_error") == 0
+
+    def test_absorb_contract(self):
+        rec = DeviceRecovery(max_reinits=1, stats=FaultStats())
+        assert rec.absorb(ValueError("not a device error")) is None
+        assert rec.absorb(SyntheticDeviceError("a")) is True  # reinit
+        assert rec.absorb(SyntheticDeviceError("b")) is False  # exhausted, no cpu step
+
+    def test_reset_drops_the_device_histories_and_a_sticky_error_counts(self, monkeypatch):
+        """A re-initialization drops every cached DeviceHistory (the next
+        suggest rebuilds from the host history); a reset that itself raises
+        (a poisoned CUDA context) is logged, and the retry's failure counts
+        against the budget."""
+        from hyperopt_tpu_torch.algos import tpe, tpe_device
+
+        domain = Domain(quad_objective, SPACE)
+        trials = Trials()
+        algo = partial(tpe.suggest, device="cpu", n_startup_jobs=2, n_EI_candidates=8)
+        fmin(quad_objective, SPACE, algo=algo, max_evals=4, trials=trials,
+             rstate=np.random.default_rng(0), show_progressbar=False, verbose=False)
+        dh = tpe_device.device_history_for(trials, domain.space, "cpu")
+        assert len(tpe_device._cache) >= 1
+        rec = DeviceRecovery(stats=FaultStats())
+        assert rec.absorb(SyntheticDeviceError("oom")) is True
+        assert len(tpe_device._cache) == 0
+        algo([99], domain, trials, 5)
+        dh2 = tpe_device.device_history_for(trials, domain.space, "cpu")
+        assert dh2 is not dh and dh2.full_rebuilds == 1
+
+        def poisoned():
+            raise RuntimeError("CUDA error: an illegal memory access was encountered")
+
+        monkeypatch.setattr(tpe_device, "reset_device_state", poisoned)
+        stats = FaultStats()
+        rec = DeviceRecovery(max_reinits=2, stats=stats)
+        with pytest.raises(RuntimeError, match="illegal memory access"):
+            rec.run(poisoned)
+        assert (stats.get("device_error"), stats.get("device_reinit")) == (3, 2)
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_recovery_schedule_equals_the_jax_packages(seed):
+    """One chaos schedule (the device site rolled once per dispatch) through
+    each package's DeviceRecovery: while the reference needs no CPU
+    fallback the fault counts are equal dispatch for dispatch; where the
+    reference would engage it, the port raises at that very dispatch
+    instead."""
+    from hyperopt_tpu.observability import FaultStats as JFaultStats
+    from hyperopt_tpu.resilience.device import DeviceRecovery as JDeviceRecovery
+
+    cfg = dict(seed=seed, p_device_error=0.3)
+    jstats, tstats = JFaultStats(), FaultStats()
+    jmon = jchaos.ChaosMonkey(jchaos.ChaosConfig(**cfg), stats=jstats)
+    tmon = ChaosMonkey(ChaosConfig(**cfg), stats=tstats)
+    jrec = JDeviceRecovery(max_reinits=2, stats=jstats)
+    trec = DeviceRecovery(max_reinits=2, stats=tstats)
+    for i in range(40):
+        try:
+            jrec.run(jmon.maybe_device_error)
+        except Exception:
+            pass  # past its CPU step the reference raises too
+        if jrec.cpu_fallback_active:
+            with pytest.raises(SyntheticDeviceError):
+                trec.run(tmon.maybe_device_error)
+            assert tstats.get("cpu_fallback") == 0
+            assert tstats.get("device_reinit") == jstats.get("device_reinit")
+            break
+        trec.run(tmon.maybe_device_error)
+        assert tstats.counts() == jstats.counts(), i
+
+
+def test_device_chaos_trajectory_is_seed_transparent():
+    """Synthetic device errors at suggest dispatch (the reference's test,
+    on the port): the recovered TPE run's parameter stream and best trial
+    equal the fault-free run's (failed launches re-use their drawn (ids,
+    seed))."""
+    from hyperopt_tpu_torch.algos import tpe
+
+    algo = partial(tpe.suggest, device="cpu")
+
+    def run(with_chaos):
+        trials = Trials()
+        stats = FaultStats()
+
+        def _go():
+            fmin(chaos_objective, SPACE, algo=algo, max_evals=26, trials=trials,
+                 rstate=np.random.default_rng(1),
+                 retry_policy=RetryPolicy(max_attempts=3, backoff_base=0.01),
+                 fault_stats=stats, show_progressbar=False, verbose=False)
+
+        if with_chaos:
+            with active(ChaosMonkey(ChaosConfig(seed=2, p_device_error=0.3), stats=stats)):
+                _go()
+        else:
+            _go()
+        return trials, stats
+
+    ff_trials, _ = run(False)
+    ch_trials, stats = run(True)
+    assert stats.injected().get("device_error", 0) >= 1
+    assert stats.get("device_error") >= stats.injected()["device_error"]
+    assert stats.get("cpu_fallback") == 0
+    assert len(ch_trials.trials) == len(ff_trials.trials)
+    for a, b in zip(ch_trials.trials, ff_trials.trials):
+        assert a["misc"]["vals"] == b["misc"]["vals"]
+    assert _best_ok(ch_trials) == _best_ok(ff_trials)
+
+
+def _failing_dispatches(fail_at):
+    """A suggest observer that raises a SyntheticDeviceError on the
+    dispatches numbered in ``fail_at`` (0-based)."""
+    seen = {"n": 0}
+
+    def observe(requests):
+        i = seen["n"]
+        seen["n"] += 1
+        if i in fail_at:
+            raise SyntheticDeviceError(f"injected at dispatch {i}")
+
+    return observe
+
+
+@pytest.mark.parametrize("fail_at,recovers", [((3, 4), True), ((3, 4, 5), False)])
+def test_pipelined_recovery_within_and_past_the_budget(fail_at, recovers):
+    """The pipelined fmin (k=1): two consecutive device errors (a failed
+    speculative launch, then its synchronous recompute) are absorbed by
+    two re-initializations and the trials equal a fault-free run's, value
+    for value; a third raises."""
+    from hyperopt_tpu_torch.algos import tpe, tpe_device
+    from hyperopt_tpu_torch.fmin import FMinIter
+
+    algo = partial(tpe.suggest, device="cpu", n_startup_jobs=3, n_EI_candidates=16)
+
+    def run(observer):
+        trials = Trials()
+        it = FMinIter(algo, Domain(quad_objective, SPACE), trials,
+                      rstate=np.random.default_rng(4), max_evals=10, max_speculation=1,
+                      show_progressbar=False)
+        if observer is not None:
+            tpe_device._suggest_observers.append(observer)
+        try:
+            it.exhaust()
+        finally:
+            if observer is not None:
+                tpe_device._suggest_observers.remove(observer)
+        return it, [t["misc"]["vals"]["x"] for t in trials.trials]
+
+    _, ff = run(None)
+    if recovers:
+        it, vals = run(_failing_dispatches(fail_at))
+        assert vals == ff
+        assert it.fault_stats.counts() == {"device_error": 2, "device_reinit": 2}
+        assert it.device_recovery.n_reinits == 0  # refilled by the next success
+    else:
+        with pytest.raises(SyntheticDeviceError):
+            run(_failing_dispatches(fail_at))
+
+
+@pytest.mark.parametrize("kernel", ["pair_score", "fused_suggest"])
+def test_kernel_launch_failure_is_a_device_error(kernel, monkeypatch):
+    """A launch function returning a non-zero CUDA status raises an error
+    the device recovery recognizes (the wrappers' launch path, driven on
+    CPU tensors with the CUDA stream calls stubbed)."""
+    import contextlib
+    import types
+
+    from hyperopt_tpu_torch.ops import fused_kernel, pair_kernel
+
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d=None: types.SimpleNamespace(cuda_stream=0))
+
+    def failing(*args):
+        return 700  # cudaErrorIllegalAddress
+
+    L, C, K, kb = 1, 64, 8, 3
+    params = torch.zeros((L, 3, K))
+    with pytest.raises(RuntimeError, match="CUDA error 700") as ei:
+        if kernel == "pair_score":
+            pair_kernel._launch(torch.zeros((L, C)), params, kb, fn=failing)
+        else:
+            fused_kernel._launch(torch.zeros((L, C)), None, None, params, kb, 1, 16,
+                                 False, False, fn=failing)
+    assert is_device_error(ei.value)
+    stats = FaultStats()
+    assert DeviceRecovery(max_reinits=0, stats=stats).absorb(ei.value) is False
+    assert stats.get("device_error") == 1
 
 
 # ---------------------------------------------------------------------

@@ -182,7 +182,9 @@ def test_import_hygiene():
         "assert not bad, bad\n"
         "need = ['hyperopt_tpu_torch.' + m for m in ('rdists', 'algos.algobase',\n"
         "        'algos.anneal', 'algos.criteria', 'algos.mix', 'algos.atpe',\n"
-        "        'models.domains', 'parallel.torch_trials')]\n"
+        "        'models.domains', 'parallel.torch_trials', 'analysis',\n"
+        "        'analysis.diagnostics', 'analysis.space_lint', 'profiling',\n"
+        "        'resilience.fsck', 'observability')]\n"
         "assert all(m in sys.modules for m in need), need\n"
         "print(sum(m.startswith('hyperopt_tpu_torch') for m in sys.modules))\n"
     )

@@ -320,11 +320,13 @@ def test_fmin_resumes_from_pickle(tmp_path):
 
 
 @pytest.mark.parametrize("kwargs", [
-    # speculation, retry policies and fault stats are ported; with a
-    # keyword that is not, fmin still raises
-    {"max_speculation": 2, "validate_space": True}, {"validate_space": True},
+    # speculation, retry policies, fault stats and the space lint are
+    # ported; with a keyword that is not, fmin still raises
+    {"max_speculation": 2, "validate_space": True, "trials_save_file": "run.orbax"},
+    {"validate_space": True, "trials_save_file": "run.orbax"},
     {"retry_policy": T.resilience.RetryPolicy(), "trials_save_file": "run.orbax"},
-    {"fault_stats": T.observability.FaultStats(), "validate_space": True},
+    {"fault_stats": T.observability.FaultStats(), "validate_space": True,
+     "trials_save_file": "run.orbax"},
     {"trials_save_file": "run.orbax"},
 ])
 def test_unported_keywords_raise(kwargs):
@@ -355,3 +357,81 @@ def test_numpy_facing_wrappers_match_jax():
     losses = rng.standard_normal(50)
     assert T.tpe.ap_split_trials(np.arange(50), losses, 0.25) == \
         J.tpe.ap_split_trials(np.arange(50), losses, 0.25)
+
+
+def _prefilled(n, seed=0):
+    """``n`` completed trials over bench.py's space, drawn by the port's
+    sampler on the CPU (``chip_smoke.prefilled_trials`` on the CPU)."""
+    domain = T.Domain(lambda c: 0.0, bench_space(T.hp))
+    vals, _ = domain.space.sample_batch(seed, n, device="cpu")
+    losses = np.random.default_rng(seed).standard_normal(n)
+    docs = []
+    for i in range(n):
+        cfg = {k: float(vals[k][i]) for k in vals}
+        docs.append({
+            "tid": i, "spec": None, "result": {"status": T.STATUS_OK, "loss": float(losses[i])},
+            "misc": {"tid": i, "cmd": None, "idxs": {k: [i] for k in cfg},
+                     "vals": {k: [v] for k, v in cfg.items()}},
+            "state": T.JOB_STATE_DONE, "owner": None, "book_time": None,
+            "refresh_time": None, "exp_key": None,
+        })
+    trials = T.Trials()
+    trials._insert_trial_docs(docs)
+    trials.refresh()
+    return domain, trials
+
+
+def test_plain_label_scores_order_the_suggests_candidates_as_it_did():
+    """The near-tie rescoring (``tpe.plain_label_scores``) reproduces the
+    CPU suggest's own order at the shape where the card's agreement rule
+    failed (2,000 trials x 4,096 candidates, seeds 0-7): for every label
+    the row's argmax is the suggest's winner, exactly, and the winner
+    scores at least as high as its runner-up candidate; in f64 the same
+    candidates are scored again (what the rule's allowance reads)."""
+    n = 2000
+    domain, trials = _prefilled(n)
+    kw = dict(n_EI_candidates=4096)
+    for seed in range(8):
+        doc, = T.tpe.suggest([n], domain, trials, seed, device="cpu", **kw)
+        for lb, (v,) in doc["misc"]["vals"].items():
+            cands, s = T.tpe.plain_label_scores([n], domain, trials, seed, lb, **kw)
+            _, s64 = T.tpe.plain_label_scores([n], domain, trials, seed, lb,
+                                              dtype=torch.float64, **kw)
+            assert cands.shape == s.shape == s64.shape == (1, 4096)
+            order = np.argsort(-s[0], kind="stable")
+            win, runner = order[0], order[1]
+            assert cands[0, win] == v, (seed, lb, cands[0, win], v)
+            assert s[0, win] >= s[0, runner], (seed, lb)
+            assert np.isfinite(s64[0, [win, runner]]).all()
+
+
+def test_near_tie_rule_reads_the_suggests_own_scores():
+    """``chip_smoke.near_ties`` (the card-vs-CPU rule) on a CPU suggest
+    with a made-up mismatch: the "card" chose the runner-up, its value one
+    ulp off the CPU's candidate (as the card's draw may be).  The rule
+    finds both candidates, scores only their chunks, and reads the gap
+    the suggest's own full row gives: never negative."""
+    import chip_smoke as cs
+
+    n = 2000
+    domain, trials = _prefilled(n)
+    kw = dict(n_EI_candidates=4096)
+    mismatches, full = [], {}
+    for seed in range(3):
+        doc, = T.tpe.suggest([n], domain, trials, seed, device="cpu", **kw)
+        for lb in ("lr", "sigma"):
+            cands, s = T.tpe.plain_label_scores([n], domain, trials, seed, lb, **kw)
+            order = np.argsort(-s[0], kind="stable")
+            runner = cands[0, order[1]]
+            mismatches.append((seed, 0, lb, float(np.nextafter(np.float32(runner),
+                                                                np.float32(np.inf))),
+                               doc["misc"]["vals"][lb][0]))
+            full[(seed, lb)] = float(s[0, order[0]] - s[0, order[1]])
+            _, s_at = T.tpe.plain_label_scores([n], domain, trials, seed, lb,
+                                               at=[int(order[0]), int(order[1])], **kw)
+            assert s_at[0, order[0]] == s[0, order[0]] and s_at[0, order[1]] == s[0, order[1]]
+    ties = cs.near_ties(T, domain, trials, [n], mismatches, **kw)
+    assert len(ties) == len(mismatches)
+    for t in ties:
+        assert t["gap"] == full[(t["seed"], t["label"])] >= 0.0, t
+        assert t["allow"] > 0
