@@ -109,7 +109,28 @@ non-zero without the final line):
     FLOPs and bytes, binding ceiling and share; the duty cycle; the
     Prometheus text parses; suggest p50 with and without the profiler,
     16 each in turns.
-23. ``timing``: each kernel, its plain version and one PyTorch library call
+23. ``service``: the optimization service on the card, one replica
+    (``OptimizationService(device="cuda")`` behind ``ServiceServer``).  4
+    ``tpe`` studies over bench.py's space with 8192 candidates, each from
+    a 10,000-trial history, served by 4 concurrent ``ServiceClient``
+    threads for 8 suggest/report rounds each (the bench objective plus a
+    50 ms sleep), then the same studies one client at a time: wall ms per
+    trial, suggest p50/p99 (``ServiceStats``), dispatches, studies and
+    pair-score launches per dispatch (2 per study), the launch counts set
+    to 0 before each run and read after.  One batched dispatch of the 4
+    studies, held until all are queued: each study's docs equal its
+    unbatched suggest, 8 launches, the device's busy share of it
+    (``torch.profiler``).  One study served serially from the 10,000-trial
+    history gives serial ``fmin``'s trials.  Then ``python -m
+    hyperopt_tpu_torch.service`` as its own process on a root holding a
+    1,000-trial study: 6 trials, ``kill -9``, respawn on the same root and
+    port, ``/readyz`` green (seconds), a suggest replayed by its
+    idempotency key returns the same bytes, the study continues to an
+    unkilled run's trials; the respawned server warmed every ledger key,
+    served no cold suggest, exposes the service histograms and the
+    profiler's rows on ``/metrics`` and breaches no SLO; SIGTERM exits 0
+    and ``python -m hyperopt_tpu_torch.service fsck`` reports clean.
+24. ``timing``: each kernel, its plain version and one PyTorch library call
     computing the same function, by CUDA events at the main-path shape;
     the kernel's device ms per launch (``torch.profiler``); its bound, the
     larger of the f32 operations at the f32 peak, the issue slots and SFU
@@ -119,7 +140,8 @@ non-zero without the final line):
 
 Every phase but ``fused_probe`` runs with ``HYPEROPT_TPU_FUSED_PROBE=0``,
 so the probe does not change the tier the others measure.  Then the
-``kernels`` line, the ``nvidia-smi`` line, and last
+``kernels`` line (with ``launches_service``, each kernel's launches in
+the service phase's concurrent run), the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of
 ``hyperopt_tpu``; needs one card.
 """
@@ -130,6 +152,8 @@ import logging
 import math
 import os
 import re
+import shutil
+import signal
 import subprocess
 import threading
 import sys
@@ -1091,6 +1115,62 @@ def near_ties(T, domain, trials, ids, mismatches, **kw):
     return rows
 
 
+def split_mismatches(T, domain, trials, ids, mismatches, card="cuda", **kw):
+    """Each card-vs-CPU mismatch's cause, read from both suggests' own
+    candidates (``tpe.plain_label_scores`` on the card and on the CPU, from
+    the same streams), with the card's winner looked up among the card's
+    candidates and the CPU's among the CPU's:
+
+    - ``draw``: both winners sit at one candidate index, so the argmaxes
+      agree and the card drew that candidate otherwise than the CPU;
+    - ``order_kernel``: the plain scorer on the card, over the card's own
+      candidates, picks the CPU's index (the kernel orders a near-tie
+      otherwise than its plain version);
+    - ``order_plain``: it picks the card's index and both candidates are
+      drawn alike on both sides (the card's plain products order the tie
+      otherwise than the CPU's); ``order_draw`` when they are not alike.
+
+    One row per mismatch; the card's plain scores are read once per
+    (seed, label).  ``card`` is the device the mismatching suggest ran on."""
+    groups = {}
+    for m in mismatches:
+        groups.setdefault((m[0], m[2]), []).append(m)
+    rows = []
+    with cpu_drawn_streams():
+        for (seed, lb), group in groups.items():
+            cc, sc = T.tpe.plain_label_scores(ids, domain, trials, seed, lb,
+                                              device=card, **kw)
+            cp, _ = T.tpe.plain_label_scores(ids, domain, trials, seed, lb,
+                                             device="cpu", **kw)
+            for _, j, _, card_v, cpu_v in group:
+                i_card = int(np.argmin(np.abs(cc[j] - card_v)))
+                i_cpu = int(np.argmin(np.abs(cp[j] - cpu_v)))
+                plain_card = int(np.argmax(sc[j]))
+                if i_card == i_cpu:
+                    cause = "draw"
+                elif plain_card == i_cpu:
+                    cause = "order_kernel"
+                elif cc[j, i_card] == cp[j, i_card] and cc[j, i_cpu] == cp[j, i_cpu]:
+                    cause = "order_plain"
+                else:
+                    cause = "order_draw"
+                rows.append({"seed": seed, "id": j, "label": lb, "cause": cause,
+                             "card_exact": bool(cc[j, i_card] == card_v),
+                             "plain_gap_on_card": float(sc[j, i_cpu] - sc[j, i_card])})
+    return rows
+
+
+def split_tables(rows):
+    """The causes of :func:`split_mismatches`, counted, and by label."""
+    causes, by_label = {}, {}
+    for r in rows:
+        causes[r["cause"]] = causes.get(r["cause"], 0) + 1
+        slot = by_label.setdefault(r["label"], {})
+        slot[r["cause"]] = slot.get(r["cause"], 0) + 1
+    return {"causes": causes, "causes_by_label": by_label,
+            "card_winner_not_a_card_candidate": sum(not r["card_exact"] for r in rows)}
+
+
 MULTI_IDS = 8
 # The 8-id suggest's card-vs-CPU rule.  At 8 x 8192 candidates per label
 # the log-scale `lr` winners sit among near-ties that two f32 scorers
@@ -1101,14 +1181,16 @@ AGREEMENT_SEEDS = range(8)
 AGREEMENT_SHARE = 0.8
 
 
-def assert_agreement(pairs, close, ties):
+def assert_agreement(pairs, close, ties, split=None):
     """At least AGREEMENT_SHARE of the values equal to rtol 1e-5, and each
     mismatch a near-tie within the allowance TOLERANCE implies; on failure
-    the message carries the share, the mismatches by label and the ones
-    outside the allowance."""
+    the message carries the share, the mismatches by label, the ones
+    outside the allowance and, given the rows of :func:`split_mismatches`,
+    their causes."""
     outside = [t for t in ties if not 0.0 <= t["gap"] <= t["allow"]]
     assert close >= AGREEMENT_SHARE * pairs and not outside, dict(
         close=close, pairs=pairs, share=close / pairs, **mismatch_tables(ties),
+        **(split_tables(split) if split is not None else {}),
         worst_gap_over_allowance=max((t["gap"] / t["allow"] for t in ties), default=0.0),
         outside_allowance=outside)
 
@@ -2036,6 +2118,327 @@ def bound(cells, n_bytes, card):
             "sfu_bound_ms": cells / (EX2_PER_SM_CLOCK * sm_hz) * 1e3, **b}
 
 
+SERVICE_STUDIES = 4
+SERVICE_ROUNDS = 8
+DURABLE_HISTORY = 1000  # the kill -9 check's history: a smaller depth than N_HISTORY
+DURABLE_FIRST, DURABLE_TOTAL = 6, 10
+
+
+def hist_delta_quantiles(before, after):
+    """p50 and p99 ms of the observations between two ``LatencyHistogram``
+    states (the fixed buckets make a window an elementwise difference)."""
+    from hyperopt_tpu_torch.observability import quantile_from_counts
+
+    counts = [a - b for a, b in zip(after["counts"], before["counts"])]
+    return {q: (None if not sum(counts) else
+                1e3 * quantile_from_counts(after["edges"], counts, p))
+            for q, p in (("p50_ms", 0.5), ("p99_ms", 0.99))}
+
+
+def drive_clients(T, url, sids, rounds, concurrent):
+    """Each study ``rounds`` suggest/report rounds over HTTP with the bench
+    objective plus OBJECTIVE_SLEEP_S, one client thread per study at once
+    (``concurrent``) or one study after another.  Returns wall seconds."""
+    from hyperopt_tpu_torch.fmin import space_eval
+    from hyperopt_tpu_torch.service import ServiceClient
+
+    space = bench_space(T.hp)
+    errors = []
+
+    def run(sid):
+        try:
+            client = ServiceClient(url)
+            for _ in range(rounds):
+                (t,) = client.suggest(sid)
+                cfg = space_eval(space, t["vals"])
+                check_bench_values(cfg)
+                time.sleep(OBJECTIVE_SLEEP_S)
+                client.report(sid, t["tid"], loss=float(bench_objective(cfg)))
+        except Exception as e:  # raised below, after every thread ended
+            errors.append(e)
+
+    t0 = time.perf_counter()
+    if concurrent:
+        threads = [threading.Thread(target=run, args=(sid,)) for sid in sids]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        assert not any(t.is_alive() for t in threads), "a client thread hung"
+    else:
+        for sid in sids:
+            run(sid)
+    wall = time.perf_counter() - t0
+    assert not errors, errors
+    return wall
+
+
+def gated_batch(T, svc, sids, kw, around=contextlib.nullcontext):
+    """Hold the scheduler (a ``call_soon`` task waiting on a gate), queue
+    one suggest per study, release: ONE batched dispatch serves them all.
+    ``around()`` is entered for the release and the wait only (a profiler
+    then sees the batch and not the unbatched reference suggests).
+    Returns (served payloads, the unbatched suggests' values from the same
+    history and seed, pair-score launches of the dispatch, its wall s)."""
+    import copy
+
+    from hyperopt_tpu_torch.ops.pair_kernel import pair_score_batched
+
+    gate, results, errors = threading.Event(), {}, []
+    svc.scheduler.call_soon(lambda: gate.wait(120))
+    expected = {}
+    for sid in sids:
+        study = svc.registry.get(sid)
+        with study.lock:  # the scheduler is held: nothing else touches it
+            seed = int(copy.deepcopy(study.rstate).integers(2 ** 31 - 1))
+            tid = max(study.trials._ids) + 1
+            (doc,) = T.tpe.suggest([tid], study.domain, study.trials, seed, **kw)
+        expected[sid] = {k: v[0] for k, v in doc["misc"]["vals"].items() if v}
+
+    def call(sid):
+        try:
+            results[sid] = svc.suggest(sid, timeout=300)
+        except Exception as e:
+            errors.append(e)
+
+    threads = [threading.Thread(target=call, args=(sid,)) for sid in sids]
+    for t in threads:
+        t.start()
+    deadline = time.monotonic() + 60
+    while len(svc.scheduler._queue) < len(sids) and time.monotonic() < deadline:
+        time.sleep(0.01)
+    try:
+        assert len(svc.scheduler._queue) == len(sids), "suggests did not queue"
+        before = svc.stats.summary()
+        launches0 = pair_score_batched.launches
+        with around():
+            gate.set()
+            for t in threads:
+                t.join(timeout=300)
+            torch.cuda.synchronize()
+    finally:
+        gate.set()
+        for t in threads:
+            t.join(timeout=300)
+    assert not any(t.is_alive() for t in threads) and not errors, errors
+    after = svc.stats.summary()
+    assert after["n_dispatches"] == before["n_dispatches"] + 1, (before, after)
+    return (results, expected, pair_score_batched.launches - launches0,
+            after["dispatch_s"] - before["dispatch_s"])
+
+
+def spawn_service(root, port, log):
+    """``python -m hyperopt_tpu_torch.service --root ROOT --port PORT`` (the
+    card by default) as a process of its own, its output into ``log``."""
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    return subprocess.Popen(
+        [sys.executable, "-m", "hyperopt_tpu_torch.service", "--root", root,
+         "--port", str(port)],
+        env=env, cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=log, stderr=subprocess.STDOUT)
+
+
+def stop_process(proc, sig=signal.SIGTERM, timeout=60):
+    if proc.poll() is None:
+        proc.send_signal(sig)
+        try:
+            return proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+            raise
+    return proc.returncode
+
+
+def phase_service(T, counters):
+    """The optimization service on the card, one replica: throughput of 4
+    concurrent studies at the main path's size against the same studies one
+    at a time, the batched dispatch's docs and launches, determinism against
+    serial fmin, kill -9 recovery of a CLI server with an idempotent replay,
+    fsck, and a warm restart from the compile ledger.  Returns the
+    pair-score launches of the concurrent run."""
+    import copy
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from hyperopt_tpu_torch.fmin import space_eval
+    from hyperopt_tpu_torch.service import (
+        OptimizationService,
+        ServiceClient,
+        ServiceServer,
+        free_port,
+    )
+
+    t_phase = time.perf_counter()
+    kw = dict(n_EI_candidates=N_CAND)
+    space = bench_space(T.hp)
+    sids = [f"s{i}" for i in range(SERVICE_STUDIES)]
+    svc = OptimizationService(root=None, device="cuda")
+    server = ServiceServer(svc, port=free_port()).start()
+    out = {}
+    try:
+        client = ServiceClient(server.url)
+        client.wait_ready(timeout=120)
+        for i, sid in enumerate(sids):
+            client.create_study(sid, space, seed=i, algo="tpe", algo_params=kw)
+            study = svc.registry.get(sid)
+            with study.lock:
+                prefilled_trials(T, N_HISTORY, seed=i, trials=study.trials)
+        # (1) throughput: 4 client threads at once, then one at a time
+        for name, concurrent in (("concurrent", True), ("one_at_a_time", False)):
+            h0, s0 = svc.stats._suggest_hist.state(), svc.stats.summary()
+            for c in counters:
+                c.launches = 0
+            wall = drive_clients(T, server.url, sids, SERVICE_ROUNDS, concurrent)
+            launches = {c.__name__: c.launches for c in counters}
+            h1, s1 = svc.stats._suggest_hist.state(), svc.stats.summary()
+            n_disp = s1["n_dispatches"] - s0["n_dispatches"]
+            n_batched = s1["n_batched_suggests"] - s0["n_batched_suggests"]
+            out[name] = {
+                "wall_ms_per_trial": wall * 1e3 / (len(sids) * SERVICE_ROUNDS),
+                **hist_delta_quantiles(h0, h1), "dispatches": n_disp,
+                "studies_per_dispatch": n_batched / n_disp,
+                "pair_score_launches_per_dispatch": launches["pair_score_batched"] / n_disp,
+                "launches": launches,
+                "cold_suggests": s1["n_cold_suggests"] - s0["n_cold_suggests"]}
+            emit("service", part=f"throughput_{name}", n_studies=len(sids),
+                 rounds=SERVICE_ROUNDS, n_history=N_HISTORY, n_EI_candidates=N_CAND,
+                 objective_sleep_s=OBJECTIVE_SLEEP_S, **out[name])
+            assert launches["pair_score_batched"] == 2 * n_batched, (launches, n_batched)
+        assert out["concurrent"]["studies_per_dispatch"] > 1.0, out
+        # (2a) one batched dispatch of the 4 studies: each study's docs equal
+        # its unbatched suggest, 2 launches per study; then the same batch
+        # under torch.profiler for the device's busy share of it
+        served, expected, n_launch, disp_s = gated_batch(T, svc, sids, kw)
+        for sid in sids:
+            assert served[sid][0]["vals"] == expected[sid], (sid, served[sid], expected[sid])
+        assert n_launch == 2 * len(sids), n_launch
+        prof = profile(activities=[ProfilerActivity.CUDA])
+        _, _, _, prof_s = gated_batch(T, svc, sids, kw, around=lambda: prof)
+        device_ms = sum(getattr(a, "self_device_time_total", 0.0) / 1e3
+                        for a in prof.key_averages() if str(a.device_type).endswith("CUDA"))
+        emit("service", part="batched_dispatch", docs_equal_unbatched=True,
+             pair_score_launches=n_launch, dispatch_ms=disp_s * 1e3,
+             profiled_dispatch_ms=prof_s * 1e3,
+             device_ms=device_ms if device_ms else "not measured",
+             device_busy_share=device_ms / (disp_s * 1e3) if device_ms else "not measured")
+        # (2b) one study served serially over HTTP from the 10,000-trial
+        # history equals serial fmin(tpe.suggest) at the same seed
+        client.create_study("det", space, seed=7, algo="tpe", algo_params=kw)
+        study = svc.registry.get("det")
+        with study.lock:
+            prefilled_trials(T, N_HISTORY, seed=7, trials=study.trials)
+        got = []
+        for _ in range(N_SUGGESTS):
+            (t,) = client.suggest("det")
+            got.append(t["vals"])
+            client.report("det", t["tid"], loss=float(bench_objective(space_eval(space, t["vals"]))))
+    finally:
+        server.stop(timeout=120)
+    trials = prefilled_trials(T, N_HISTORY, seed=7)
+    T.fmin(bench_objective, space, algo=partial(T.tpe.suggest, **kw),
+           max_evals=N_HISTORY + N_SUGGESTS, trials=trials, rstate=np.random.default_rng(7),
+           show_progressbar=False, max_speculation=0)
+    ref = [{k: v[0] for k, v in d["misc"]["vals"].items() if v} for d in trials.trials[N_HISTORY:]]
+    emit("service", part="determinism", n_history=N_HISTORY, n_trials=len(got),
+         trials_equal_serial_fmin=got == ref)
+    assert got == ref, (got, ref)
+
+    # (3) durability: the CLI server on the card, kill -9, respawn
+    base = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "service_smoke")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    root = os.path.join(base, "root")
+    from hyperopt_tpu_torch.service import StudyRegistry
+
+    reg = StudyRegistry(root, device="cuda")
+    study = reg.create("dur", space, seed=11, algo_name="tpe", algo_params=kw)
+    assert study.trials.new_trial_ids(DURABLE_HISTORY) == list(range(DURABLE_HISTORY))
+    prefilled_trials(T, DURABLE_HISTORY, seed=11, trials=study.trials)
+    del reg, study
+    twin = prefilled_trials(T, DURABLE_HISTORY, seed=11)
+    T.fmin(bench_objective, space, algo=partial(T.tpe.suggest, **kw),
+           max_evals=DURABLE_HISTORY + DURABLE_TOTAL, trials=twin,
+           rstate=np.random.default_rng(11), show_progressbar=False, max_speculation=0)
+    twin_vals = [{k: v[0] for k, v in d["misc"]["vals"].items() if v}
+                 for d in twin.trials[DURABLE_HISTORY:]]
+    port = free_port()
+    url = f"http://127.0.0.1:{port}"
+    log = open(os.path.join(base, "server.log"), "w+")
+    procs = []
+    try:
+        t0 = time.perf_counter()
+        procs.append(spawn_service(root, port, log))
+        client = ServiceClient(url, deadline=120.0, max_transport_retries=100,
+                               backoff_max=0.5, breaker_threshold=50, breaker_cooldown=0.25)
+        client.wait_ready(timeout=300)
+        first_ready_s = time.perf_counter() - t0
+        got, replay_bytes = [], None
+        for i in range(DURABLE_FIRST):
+            body = {"n": 1, "idempotency_key": f"dur-{i}"}
+            status, raw = client._request("POST", "/v1/studies/dur/suggest", body, raw=True)
+            assert status == 200, status
+            (t,) = json.loads(raw)["trials"]
+            replay_bytes = (body, raw)
+            got.append(t["vals"])
+            client.report("dur", t["tid"], loss=float(bench_objective(space_eval(space, t["vals"]))))
+        procs[-1].send_signal(signal.SIGKILL)
+        procs[-1].wait(timeout=60)
+        t0 = time.perf_counter()
+        procs.append(spawn_service(root, port, log))
+        ready = client.wait_ready(timeout=300)
+        respawn_ready_s = time.perf_counter() - t0
+        assert ready["recovery"]["recovered_studies"] == 1, ready
+        status, raw = client._request("POST", "/v1/studies/dur/suggest", replay_bytes[0],
+                                      raw=True)
+        assert status == 200 and raw == replay_bytes[1], (status, raw, replay_bytes[1])
+        # (4) the respawned server warmed every ledger key before /readyz
+        warm = client.warmup()
+        for _ in range(DURABLE_TOTAL - DURABLE_FIRST):
+            (t,) = client.suggest("dur")
+            got.append(t["vals"])
+            client.report("dur", t["tid"], loss=float(bench_objective(space_eval(space, t["vals"]))))
+        st = client.service_status()["stats"]
+        metrics = client.metrics()
+        alerts = client.alerts()
+        rc_term = stop_process(procs[-1])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+        log.close()
+    emit("service", part="durability", n_history=DURABLE_HISTORY, killed_after=DURABLE_FIRST,
+         n_trials=len(got), trials_equal_unkilled=got == twin_vals,
+         replay_byte_identical=True, first_start_to_ready_s=first_ready_s,
+         respawn_to_ready_s=respawn_ready_s, sigterm_exit=rc_term)
+    assert got == twin_vals, (got, twin_vals)
+    assert rc_term == 0, rc_term
+    fsck = subprocess.run([sys.executable, "-m", "hyperopt_tpu_torch.service", "fsck", root],
+                          capture_output=True, text=True, timeout=300,
+                          cwd=os.path.dirname(os.path.abspath(__file__)),
+                          env=dict(os.environ, PYTHONPATH=os.path.dirname(
+                              os.path.abspath(__file__))))
+    emit("service", part="fsck", exit=fsck.returncode, report=fsck.stdout.strip()[-200:])
+    assert fsck.returncode == 0 and fsck.stdout.strip().endswith("clean"), fsck.stdout
+    states = [i["state"] for i in warm["items"]]
+    metric_rows = [m for m in ("hyperopt_service_suggest_duration_seconds_bucket",
+                               "hyperopt_device_dispatches_total",
+                               "hyperopt_device_roofline_pct") if m in metrics]
+    emit("service", part="warm_restart", warmup_items=len(states), warmup_states=states,
+         warmup_from_ledger=sum(i["source"] == "ledger" for i in warm["items"]),
+         cold_suggests=st["n_cold_suggests"], cold_after_ready=st["n_cold_after_ready"],
+         metrics_rows=metric_rows, slo_breaching=alerts["breaching"],
+         slo_rules={r["rule"]: r["status"] for r in alerts["rules"]})
+    assert states and all(s == "warm" for s in states), warm
+    assert any(i["source"] == "ledger" for i in warm["items"]), warm
+    assert st["n_cold_suggests"] == 0 and st["n_cold_after_ready"] == 0, st
+    assert len(metric_rows) == 3, metric_rows
+    assert alerts["breaching"] == [], alerts["breaching"]
+    emit("service", part="seconds", seconds=time.perf_counter() - t_phase)
+    return out["concurrent"]["launches"]
+
+
 def device_ms_per_launch(fn, names, iters=50):
     """Device time per call of ``fn`` of the kernels whose names hold one of
     ``names``, by ``torch.profiler``: the kernels alone, without the
@@ -2213,10 +2616,14 @@ def main():
     phase_space_lint(T, counters)
     phase_device_recovery(T, counters)
     phase_profiler(T, counters, trials)
+    service_launches = phase_service(T, counters)
     launches = {**launches, "fused_suggest": fused_runs["0"][0]["fused_suggest"],
                 "fused_suggest_draw": fused_runs["1"][0]["fused_suggest"],
                 "pair_score_single": single["pair_score_single"]}
     kernels = phase_timing(errs, launches, card)
+    for r in kernels:
+        # the launches of the service phase's concurrent run, its own path
+        r["launches_service"] = service_launches[r["name"]]
     assert "jax" not in sys.modules and not any(
         m == "hyperopt_tpu" or m.startswith("hyperopt_tpu.") for m in sys.modules)
     print(json.dumps({"kernels": kernels}), flush=True)

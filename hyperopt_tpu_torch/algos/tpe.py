@@ -615,7 +615,7 @@ def suggest_prepare(
 
 
 def plain_label_scores(new_ids, domain, trials, seed, label,
-                       dtype=torch.float32, at=None, **kw):
+                       dtype=torch.float32, at=None, device="cpu", **kw):
     """The CPU suggest's own candidates for ``label`` and their plain
     scores (log l − log g): ``(cands, scores)``, each ``[k, n_cand]`` for
     the ``k = len(new_ids)`` ids, ``cands`` as raw values.
@@ -635,11 +635,12 @@ def plain_label_scores(new_ids, domain, trials, seed, label,
     each id's CPU winner is the first argmax of its row; ``dtype=
     torch.float64`` evaluates the same candidates in f64.  What tells a
     near-tie between two scorers' winners from a wrong winner; no suggest
-    path calls it."""
+    path calls it.  ``device="cuda"`` does all of it on the card instead:
+    the card's own candidates, scored by the plain version there."""
     from . import tpe_device as td
 
-    requests, _ = suggest_prepare(new_ids, domain, trials, seed, device="cpu", **kw)
-    fams = td.device_history_for(trials, domain.space, "cpu").families.values()
+    requests, _ = suggest_prepare(new_ids, domain, trials, seed, device=device, **kw)
+    fams = td.device_history_for(trials, domain.space, device).families.values()
     for (kind, args, st), fam in zip(requests, fams):
         if label not in fam.labels:
             continue
@@ -656,7 +657,7 @@ def plain_label_scores(new_ids, domain, trials, seed, label,
             cands = gmm_ops.categorical_sample(u[:, 0], pb)
             pb, pa = pb.to(dtype), pa.to(dtype)
             s = gmm_ops.categorical_lpdf(cands, pb) - gmm_ops.categorical_lpdf(cands, pa)
-            raw = fam.from_fit_space(i, cands[i].numpy())
+            raw = fam.from_fit_space(i, cands[i].cpu().numpy())
         else:
             pm, ps, lo, hi, qq = prior.unbind(dim=1)
             B = parzen_ops.adaptive_parzen_normal_padded(below, nb, pw, pm, ps, st["lf"])
@@ -670,7 +671,7 @@ def plain_label_scores(new_ids, domain, trials, seed, label,
                 raw_lo = torch.exp(lo_d) if st["log_scale"] else lo_d
                 qe = q_d.clamp(min=td.EPS)
                 j0 = torch.floor(raw_lo / qe) - 1.0
-                grid = qe[:, None] * (j0[:, None] + torch.arange(st["n_buckets"]))
+                grid = qe[:, None] * (j0[:, None] + torch.arange(st["n_buckets"], device=qe.device))
                 g = (gmm_ops.gmm_lpdf(grid, *Bd, lo_d, hi_d, q_d, st["log_scale"], True)
                      - gmm_ops.gmm_lpdf(grid, *Ad, lo_d, hi_d, q_d, st["log_scale"], True))
                 idx = (torch.round(cands.to(dtype) / qe[:, None])
@@ -686,14 +687,14 @@ def plain_label_scores(new_ids, domain, trials, seed, label,
                 if at is None:
                     s = pair_score(z, params, B[0].shape[1])
                 else:
-                    s = torch.full(z.shape, float("nan"), dtype=dtype)
+                    s = torch.full(z.shape, float("nan"), dtype=dtype, device=z.device)
                     for c0 in sorted({int(a) // PAIR_CHUNK * PAIR_CHUNK for a in at}):
                         zc = z[:, c0:c0 + PAIR_CHUNK].contiguous()
                         s[:, c0:c0 + PAIR_CHUNK] = pair_score(zc, params, B[0].shape[1])
-            raw = fam.from_fit_space(i, cands[i].numpy())
+            raw = fam.from_fit_space(i, cands[i].cpu().numpy())
         k, n_cand = st["k"], st["n_cand"]
         return (np.asarray(raw).reshape(k, n_cand),
-                s[i].numpy().reshape(k, n_cand))
+                s[i].cpu().numpy().reshape(k, n_cand))
     raise KeyError(label)
 
 

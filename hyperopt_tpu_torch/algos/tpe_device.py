@@ -40,7 +40,9 @@ generators; a test can hand in the reference's own streams instead.
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 import time
 import weakref
 from functools import wraps
@@ -485,6 +487,7 @@ def reset_device_state():
     cached, so there is none to drop.  Reference:
     ``hyperopt_tpu/algos/tpe_device.py:546-563``."""
     _cache.clear()
+    _warm_keys.clear()
     drop_suggest_streams()
     if torch.cuda.is_initialized():
         # raises under a sticky CUDA error; the recovery logs it and
@@ -741,6 +744,92 @@ def _multi_sig(requests):
     return tuple((kind, tuple(sorted(st.items()))) for kind, _, st in requests)
 
 
+def _arg_shape(a):
+    """``(shape, dtype)`` of one family-core argument: a tensor's shape and
+    dtype name (``float32``, ``int64``, ``bool``), or ``((), "py:int")``
+    / ``((), "py:float")`` for the Python scalars (``n_below``, the prior
+    weight)."""
+    if isinstance(a, torch.Tensor):
+        return tuple(a.shape), str(a.dtype).replace("torch.", "")
+    return (), "py:" + type(a).__name__
+
+
+def args_shapes(args_list):
+    """((shape, dtype) per arg) per family — how the compile observers,
+    the compile ledger (:mod:`hyperopt_tpu_torch.compile_ledger`) and the
+    warm-program set name a program's inputs."""
+    return tuple(tuple(_arg_shape(a) for a in args) for args in args_list)
+
+
+def program_key(requests):
+    """The warm-set identity of one request list: its static signature
+    and its arguments' shapes and dtypes."""
+    return _multi_sig(requests), args_shapes([args for _, args, _ in requests])
+
+
+# The compile plane.  The port traces nothing, so its counterpart of the
+# reference's XLA retrace is a *compile event*: the first dispatch in the
+# process of a program key (:func:`program_key`).  That dispatch pays what
+# a new program costs here: the caching allocator growing to the new
+# shapes, the lazy load of the library kernels it reaches, and, the first
+# time a hand-written kernel is used, the nvcc build of its library
+# (``ops/kernel_build.py``).  ``_warm_keys`` holds the keys this process
+# has dispatched; ``reset_device_state`` clears it with the allocator's
+# cache.  ``_trace_observers`` fire on the launching thread after each
+# compile event's launches, with ``(sig, shapes, launch_s)``.  Reference:
+# ``hyperopt_tpu/algos/tpe_device.py:1054-1126``.
+_trace_observers = []
+_warm_keys = set()
+
+# Marks this thread's dispatches as off the request path (the warmup
+# replay, the cold-containment dispatch): the service's compile observer
+# keeps them out of the request-cold attribution.
+_bg_tls = threading.local()
+
+
+@contextlib.contextmanager
+def background_compiles():
+    """Mark this thread's dispatches as background (off the request path)
+    for the compile observers."""
+    prev = getattr(_bg_tls, "active", False)
+    _bg_tls.active = True
+    try:
+        yield
+    finally:
+        _bg_tls.active = prev
+
+
+def in_background_compiles() -> bool:
+    return bool(getattr(_bg_tls, "active", False))
+
+
+def is_warm(requests) -> bool:
+    """Has this process already dispatched the program ``requests`` would
+    launch?  False means the next dispatch is a compile event."""
+    return program_key(requests) in _warm_keys
+
+
+def fused_is_warm(groups) -> bool:
+    """:func:`is_warm` for the batch of ``groups`` that
+    :func:`multi_study_suggest_async` would launch (canonical order
+    first)."""
+    order = canonical_group_order(groups)
+    return is_warm([r for i in order for r in groups[i]])
+
+
+def compile_key(sig, shapes):
+    """``(trial_count_bucket, families)`` of one compile event: the
+    ``[CAPT]`` losses buffer's power-of-two capacity (argument 4 of every
+    family core) and the ``+``-joined family kinds.  The shared
+    attribution key of the service's compile metric and the compile
+    ledger.  Reference: ``hyperopt_tpu/algos/tpe_device.py:1163``."""
+    capt = 0
+    if shapes and len(shapes[0]) > 4 and len(shapes[0][4][0]) == 1:
+        capt = int(shapes[0][4][0][0])
+    families = "+".join(kind for kind, _ in sig) or "none"
+    return capt, families
+
+
 # Observer hook (the chaos harness's device-error site, ``resilience.
 # chaos``, and the roofline profiler, ``hyperopt_tpu_torch.profiling``).
 # Empty by default: the only overhead is a truthiness check.  Each
@@ -811,6 +900,8 @@ def multi_family_suggest_async(requests):
     dev = requests[0][1][1].device  # every request's obs lies on one device
     timed = done_cbs is not None and dev.type == "cuda"
     n_loaded = kernel_build.n_loaded()
+    key = program_key(requests)
+    cold = key not in _warm_keys
     t_launch0 = time.perf_counter()
     try:
         with on_suggest_stream(dev):
@@ -834,6 +925,10 @@ def multi_family_suggest_async(requests):
     except Exception as e:
         raise mark_device_error(e)
     t_launch1 = time.perf_counter()
+    if cold:
+        _warm_keys.add(key)
+        for obs in list(_trace_observers):
+            obs(key[0], key[1], t_launch1 - t_launch0)
     # a dispatch that loaded (at first use, built) a kernel library timed
     # that too: the profiler keeps it out of its steady-state means
     compiled = kernel_build.n_loaded() != n_loaded

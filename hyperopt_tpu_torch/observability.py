@@ -3,9 +3,8 @@ engine's overlap accounting, the resilience layer's fault counters,
 latency histograms, the roofline profiler's device stats, the durable
 store's stats, and their Prometheus text rendering.
 
-Reference parity: ``hyperopt_tpu/observability.py`` without
-``ServiceStats`` (``:361-737``), which arrives with the service
-(ROADMAP.md queue A item 5).  Every metric name and label is the
+Reference parity: ``hyperopt_tpu/observability.py``, ``ServiceStats``
+included (``:361-737``).  Every metric name and label is the
 reference's, so a scraper of the JAX package reads the port unchanged;
 the one difference is the identity gauge, whose labels name torch and
 CUDA (:func:`build_info`).  :func:`traced_suggest`, :func:`annotate` and
@@ -365,6 +364,384 @@ class LatencyHistogram:
         cum.append((float("inf"), acc + self.counts[-1]))
         return {"buckets": cum, "count": self.total, "sum_s": self.sum_s}
 
+
+
+class ServiceStats:
+    """Request / latency / batch-occupancy accounting for the
+    optimization service (:mod:`hyperopt_tpu_torch.service`).
+
+    Tracks, per endpoint, how many requests were served and how many
+    were rejected with backpressure; per study, how many suggests were
+    served; and for the continuous-batching scheduler, how many fused
+    device dispatches ran and how many suggest requests each one
+    carried (``mean_batch_occupancy`` — the "requests per device
+    program" number the service exists to push above 1).
+
+    Suggest latency lives in a fixed-bucket :class:`LatencyHistogram`
+    (the exported source of truth — no eviction, so p99 means p99 of
+    everything) with per-phase attributed-seconds counters fed by the
+    scheduler, plus a bounded ring sample kept only for the human
+    ``/v1/status`` JSON (its quantiles are "of the last N" and say so).
+    Idempotent replays are tagged and excluded from latency — a journal
+    hit must not fake a fast suggest or mask a slow one.
+
+    Thread-safe: HTTP handler threads and the scheduler thread record
+    concurrently.
+    """
+
+    def __init__(self, max_latency_samples=65536):
+        from collections import deque
+
+        self._lock = threading.Lock()
+        self._requests = defaultdict(int)       # endpoint -> served
+        self._rejected = defaultdict(int)       # endpoint -> 429s
+        self._errors = defaultdict(int)         # endpoint -> 5xx/504s
+        self._replayed = defaultdict(int)       # endpoint -> journal hits
+        self._study_suggests = defaultdict(int)  # study -> suggests served
+        # the exported latency source of truth: fixed buckets, no window
+        self._suggest_hist = LatencyHistogram()
+        # the warm/cold split: every suggest lands in the union histogram
+        # above AND in exactly one of these — "cold" means the fused
+        # dispatch that served it carried a compile event (first-touch:
+        # see hyperopt_tpu_torch.compile_ledger), "warm" is steady state
+        self._suggest_hist_warm = LatencyHistogram()
+        self._suggest_hist_cold = LatencyHistogram()
+        # ring buffer: a bounded human-readable sample of RECENT traffic
+        # for /v1/status only (window size is reported alongside)
+        self._suggest_latencies = deque(maxlen=int(max_latency_samples))
+        # per-phase attributed seconds (queue_wait/coalesce/prepare/
+        # dispatch/readback/finish/inline), fed by the scheduler
+        self._phase_s = defaultdict(float)
+        self._phase_n = defaultdict(int)
+        # compile events (the first dispatch in the process of a program
+        # key, see hyperopt_tpu_torch.compile_ledger) keyed by
+        # (trial-bucket, families);
+        # request-path events counted separately (background warmup/
+        # containment compiles are excluded from cold attribution)
+        self._compile_events = defaultdict(int)
+        self._n_request_compile_events = 0
+        self._n_dispatches = 0        # fused device programs launched
+        self._n_batched = 0           # suggests served through a dispatch
+        self._n_inline = 0            # host-side suggests (startup/rand)
+        self._dispatch_s = 0.0
+        self._queue_depth = 0         # last-observed scheduler queue depth
+        # cumulative depth accounting: every observation adds to the
+        # sum, so a window delta (sum/samples) yields the MEAN depth
+        # over that window — the controller's objective term.  Sampled
+        # at request arrival AND at batch dispatch (a quiet tenant's
+        # drained queue is an observation too, not a blind spot).
+        self._queue_depth_sum = 0     # sum of observed depths
+        self._queue_depth_samples = 0  # number of observations
+        self._n_studies = 0
+        # compile-plane accounting (hyperopt_tpu_torch.compile_ledger):
+        # cold suggests overall, cold suggests AFTER the service first
+        # reported ready (the SL607 numerator — post-warmup the request
+        # path must pay ~zero compiles), and host-side cold-containment
+        # fallbacks served while a compile proceeded off-thread
+        self._n_cold_suggests = 0
+        self._n_cold_after_ready = 0
+        self._n_cold_fallbacks = 0
+        self._ready = False           # latched by mark_ready()
+
+    def record_request(self, endpoint: str, seconds=None, study=None,
+                       replay=False, cold=False):
+        """``replay=True`` marks a response served from the idempotency
+        journal: counted as a request, NEVER as a latency observation
+        (journal hits are instant and would dilute the histogram's
+        tail exactly when retries spike).  ``cold=True`` marks a suggest
+        whose fused dispatch carried a compile event: it lands in the
+        union histogram AND the cold split (warm otherwise)."""
+        with self._lock:
+            self._requests[endpoint] += 1
+            if endpoint == "suggest" and not replay:
+                if study is not None:
+                    self._study_suggests[str(study)] += 1
+                if cold:
+                    self._n_cold_suggests += 1
+                    if self._ready:
+                        self._n_cold_after_ready += 1
+                if seconds is not None:
+                    self._suggest_hist.observe(float(seconds))
+                    split = (
+                        self._suggest_hist_cold if cold
+                        else self._suggest_hist_warm
+                    )
+                    split.observe(float(seconds))
+                    self._suggest_latencies.append(float(seconds))
+
+    def mark_ready(self):
+        """Latch "the service has reported ready": cold suggests from
+        here on count against SL607 (a compile in the request path
+        after warmup is the failure the warmup exists to prevent).
+
+        Armed by the first GREEN ``/readyz`` evaluation — deliberately:
+        an embedded service that is never readiness-probed keeps SL607
+        in ``no_data``, because without a readiness barrier its traffic
+        legitimately interleaves with first-touch compiles (a short
+        in-process campaign runs ~10% cold organically, and paging on
+        that would punish correct behavior).  Serving deployments
+        always probe ``/readyz`` (``wait_ready``, k8s), which is
+        exactly the population the rule guards."""
+        with self._lock:
+            self._ready = True
+
+    def record_cold_fallback(self):
+        """One suggest served host-side (cold containment) while its
+        unwarmed fused program compiled off-thread."""
+        with self._lock:
+            self._n_cold_fallbacks += 1
+
+    @property
+    def n_cold_fallbacks(self) -> int:
+        with self._lock:
+            return self._n_cold_fallbacks
+
+    def record_rejection(self, endpoint: str):
+        with self._lock:
+            self._rejected[endpoint] += 1
+
+    def record_error(self, endpoint: str):
+        """A request that failed server-side (5xx/504) — the numerator
+        of the SL603 error-rate objective, next to backpressure 429s."""
+        with self._lock:
+            self._errors[endpoint] += 1
+
+    def record_replay(self, endpoint: str):
+        """A retried request answered from the idempotency journal —
+        exactly-once doing its job (no seed consumed, no state change)."""
+        with self._lock:
+            self._replayed[endpoint] += 1
+
+    def record_dispatch(self, n_requests: int, seconds: float):
+        """One fused device program carrying ``n_requests`` suggests."""
+        with self._lock:
+            self._n_dispatches += 1
+            self._n_batched += int(n_requests)
+            self._dispatch_s += float(seconds)
+
+    def record_phase(self, phase: str, seconds: float, n: int = 1):
+        """Attribute ``seconds`` of suggest wall-time to a named phase
+        (the histogram's per-phase sums — always on, tracing or not)."""
+        with self._lock:
+            self._phase_s[str(phase)] += float(seconds)
+            self._phase_n[str(phase)] += int(n)
+
+    def record_compile(self, bucket, families, background=False):
+        """One compile event of the fused suggest program, keyed by its
+        (trial-count bucket, family composition).  ``background=True``
+        marks an off-request-path compile (AOT warmup replay, cold-
+        containment background thread): counted in the per-key event
+        map but excluded from :attr:`n_compile_events`, so a request
+        that merely OVERLAPPED it is never attributed cold."""
+        with self._lock:
+            self._compile_events[(int(bucket), str(families))] += 1
+            if not background:
+                self._n_request_compile_events += 1
+
+    @property
+    def n_compile_events(self) -> int:
+        """Request-path compile events only (the cold-attribution
+        delta); the full per-key map is :meth:`compile_events`."""
+        with self._lock:
+            return self._n_request_compile_events
+
+    def record_inline(self, n: int = 1):
+        """Suggests served host-side (random startup) — no device
+        program, so they count toward requests but not occupancy."""
+        with self._lock:
+            self._n_inline += int(n)
+
+    def set_queue_depth(self, n: int):
+        with self._lock:
+            self._queue_depth = int(n)
+            self._queue_depth_sum += int(n)
+            self._queue_depth_samples += 1
+
+    def set_n_studies(self, n: int):
+        with self._lock:
+            self._n_studies = int(n)
+
+    @property
+    def mean_batch_occupancy(self):
+        with self._lock:
+            if not self._n_dispatches:
+                return None
+            return self._n_batched / self._n_dispatches
+
+    def latency_quantiles(self):
+        """{"p50_ms": ..., "p99_ms": ...} over the FULL histogram — the
+        exported source of truth (bucket-interpolated, no eviction)."""
+        with self._lock:
+            p50 = self._suggest_hist.quantile(0.50)
+            p99 = self._suggest_hist.quantile(0.99)
+        return {
+            "p50_ms": round(p50 * 1e3, 3) if p50 is not None else None,
+            "p99_ms": round(p99 * 1e3, 3) if p99 is not None else None,
+        }
+
+    @staticmethod
+    def _split_quantiles(hist):
+        p50, p99 = hist.quantile(0.50), hist.quantile(0.99)
+        return {
+            "p50_ms": round(p50 * 1e3, 3) if p50 is not None else None,
+            "p99_ms": round(p99 * 1e3, 3) if p99 is not None else None,
+            "count": hist.total,
+        }
+
+    def split_latency_quantiles(self):
+        """{"warm": {...}, "cold": {...}} — the first-touch (compile-
+        carrying) vs steady-state attribution of the suggest latency."""
+        with self._lock:
+            return {
+                "warm": self._split_quantiles(self._suggest_hist_warm),
+                "cold": self._split_quantiles(self._suggest_hist_cold),
+            }
+
+    def warm_hist_state(self) -> dict:
+        """Diffable snapshot of the STEADY-STATE (compile-excluded)
+        suggest histogram — the SLO engine's latency-rule input
+        (compile-carrying dispatches are real cost but meaningless
+        steady-state latency)."""
+        with self._lock:
+            return self._suggest_hist_warm.state()
+
+    def slo_counters(self) -> dict:
+        """The scalar counters the SLO engine snapshots per tick.
+        ``requests_mutating`` counts only the suggest/report/create
+        routes — the SL603 denominator must not be diluted by a
+        dashboard polling /v1/alerts or /metrics between incidents."""
+        with self._lock:
+            mutating = ("suggest", "report", "create_study")
+            return {
+                "requests_suggest": self._requests.get("suggest", 0),
+                "requests_mutating": sum(
+                    self._requests.get(e, 0) for e in mutating
+                ),
+                "requests_total": sum(self._requests.values()),
+                "rejected_total": sum(self._rejected.values()),
+                # numerator and denominator must cover the SAME routes:
+                # a flaky read-only endpoint's 500s would otherwise
+                # overstate the mutating error rate
+                "errors_mutating": sum(
+                    self._errors.get(e, 0) for e in mutating
+                ),
+                "errors_total": sum(self._errors.values()),
+                # compile-plane counters (SL607 + cold containment)
+                "suggests_cold": self._n_cold_suggests,
+                "suggests_cold_after_ready": self._n_cold_after_ready,
+                "cold_fallbacks": self._n_cold_fallbacks,
+                # cumulative queue-depth accounting: a window delta of
+                # sum/samples is the mean depth over that window (the
+                # control plane's backlog objective term)
+                "queue_depth_sum": self._queue_depth_sum,
+                "queue_depth_samples": self._queue_depth_samples,
+            }
+
+    def window_quantiles(self):
+        """Ring-buffer quantiles over the last-N sample — the HUMAN
+        numbers for /v1/status, with the window size spelled out so
+        "p99" can never be silently read as all-time."""
+        import numpy as np
+
+        with self._lock:
+            lat = list(self._suggest_latencies)
+            cap = self._suggest_latencies.maxlen
+        if not lat:
+            return {"p50_ms": None, "p99_ms": None,
+                    "window": 0, "max_window": cap}
+        arr = np.asarray(lat)
+        return {
+            "p50_ms": round(float(np.percentile(arr, 50)) * 1e3, 3),
+            "p99_ms": round(float(np.percentile(arr, 99)) * 1e3, 3),
+            "window": len(lat),
+            "max_window": cap,
+        }
+
+    def phase_summary(self) -> dict:
+        with self._lock:
+            return {
+                phase: {
+                    "total_s": round(self._phase_s[phase], 6),
+                    "count": self._phase_n[phase],
+                }
+                for phase in sorted(self._phase_s)
+            }
+
+    def compile_events(self) -> dict:
+        """{"<bucket>/<families>": count} snapshot."""
+        with self._lock:
+            return {
+                f"{bucket}/{families}": n
+                for (bucket, families), n in sorted(
+                    self._compile_events.items()
+                )
+            }
+
+    def histogram_dict(self) -> dict:
+        with self._lock:
+            return self._suggest_hist.to_dict()
+
+    def summary(self) -> dict:
+        q = self.latency_quantiles()
+        split = self.split_latency_quantiles()
+        window = self.window_quantiles()
+        phases = self.phase_summary()
+        compiles = self.compile_events()
+        with self._lock:
+            occ = (
+                self._n_batched / self._n_dispatches
+                if self._n_dispatches
+                else None
+            )
+            return {
+                "requests": dict(sorted(self._requests.items())),
+                "rejected": dict(sorted(self._rejected.items())),
+                "errors": dict(sorted(self._errors.items())),
+                "idempotent_replays": dict(sorted(self._replayed.items())),
+                "study_suggests": dict(sorted(self._study_suggests.items())),
+                "n_dispatches": self._n_dispatches,
+                "n_batched_suggests": self._n_batched,
+                "n_inline_suggests": self._n_inline,
+                "mean_batch_occupancy": (
+                    round(occ, 4) if occ is not None else None
+                ),
+                "dispatch_s": round(self._dispatch_s, 6),
+                "queue_depth": self._queue_depth,
+                "queue_depth_mean": (
+                    round(
+                        self._queue_depth_sum
+                        / self._queue_depth_samples, 4,
+                    )
+                    if self._queue_depth_samples else None
+                ),
+                "n_studies": self._n_studies,
+                "n_cold_suggests": self._n_cold_suggests,
+                "n_cold_after_ready": self._n_cold_after_ready,
+                "n_cold_fallbacks": self._n_cold_fallbacks,
+                # histogram-derived (all observations ever)
+                "suggest_latency": q,
+                # first-touch (compile-carrying) vs steady-state split
+                "suggest_latency_warm": split["warm"],
+                "suggest_latency_cold": split["cold"],
+                # ring-derived (recent window; human eyes only)
+                "suggest_latency_window": window,
+                "phase_seconds": phases,
+                "compile_events": compiles,
+            }
+
+    def log_summary(self, level=logging.INFO):
+        s = self.summary()
+        logger.log(
+            level,
+            "service: requests=%s rejected=%s dispatches=%d occupancy=%s "
+            "p50=%sms p99=%sms",
+            s["requests"],
+            s["rejected"],
+            s["n_dispatches"],
+            s["mean_batch_occupancy"],
+            s["suggest_latency"]["p50_ms"],
+            s["suggest_latency"]["p99_ms"],
+        )
 
 
 class DeviceStats:
@@ -1027,19 +1404,14 @@ def render_prometheus(
     can never blow up the exposition unnoticed.
 
     ``store``: a :class:`StoreStats` — the storage-plane gauge block.
-    ``slo``: a list of SLO rule rows (the reference's ``SloEngine
+    ``slo``: a list of SLO rule rows (``hyperopt_tpu_torch.slo.SloEngine
     .metrics_rows``) — status/burn-rate/breaches per SL6xx rule.
-    ``control``: the control-plane block (the reference's
-    ``ControlStats.control_metrics``) —
+    ``control``: the control-plane block
+    (``hyperopt_tpu_torch.control.ControlStats.control_metrics``) —
     self-tuning decision counters, the last objective, the frozen
     flag, and the SH5xx admission-reclaim counter.
     ``build``: the :func:`build_info` labels dict — one
     ``hyperopt_build_info{version,torch,cuda,backend} 1`` identity gauge.
-
-    ``service``, ``slo`` and ``control`` render whatever object is passed
-    with the reference's interface (``ServiceStats.summary()`` and
-    ``histogram_dict()``, the row and dict shapes above); the port's own
-    classes for them arrive with the service slice.
     """
     lines = []
 

@@ -28,6 +28,9 @@ NVCC_FLAGS = (
 )
 
 _loaded = {}
+# kernel-library cache accounting (the compile ledger's cache counters):
+# a load that found its library on disk is a hit, one that ran nvcc a miss
+_cache_events = {"hits": 0, "misses": 0}
 
 
 def _nvcc() -> str:
@@ -91,6 +94,21 @@ def build(names) -> dict:
     return report
 
 
+def set_build_dir(path) -> Path:
+    """Build and load kernel libraries under ``path`` from now on (the
+    service's ``--compile-cache-dir``: a restart on the same directory
+    loads the libraries an earlier process built)."""
+    global BUILD_DIR
+    BUILD_DIR = Path(path).resolve()
+    return BUILD_DIR
+
+
+def cache_events() -> dict:
+    """``{"hits", "misses"}``: library loads that found their library
+    built, and those that built it."""
+    return dict(_cache_events)
+
+
 def n_loaded() -> int:
     """How many kernel libraries this process has loaded so far."""
     return len(_loaded)
@@ -101,7 +119,10 @@ def load(name: str) -> ctypes.CDLL:
     lib = _loaded.get(name)
     if lib is None:
         path = library_path(name)
-        if not path.exists():
+        if path.exists():
+            _cache_events["hits"] += 1
+        else:
+            _cache_events["misses"] += 1
             build([name])
         lib = ctypes.CDLL(str(path))
         _loaded[name] = lib

@@ -25,6 +25,9 @@ MongoDB deployment, so the durable queue is a directory:
                                   'FMinIter_Domain'
     <queue>/ids.counter           monotonic trial-id allocator (lock-file
                                   protected)
+    <queue>/leases.mutex          flock(2) target serializing every lease
+                                  write and unlink (port only: a renewal
+                                  never undoes a reclaim)
 
 Durability semantics match Mongo: re-run fmin with the same queue dir (and
 exp_key) to resume; workers are stateless and restartable at any time.
@@ -37,7 +40,9 @@ cleanup).
 
 from __future__ import annotations
 
+import contextlib
 import datetime
+import fcntl
 import glob
 import json
 import logging
@@ -474,19 +479,37 @@ class FileJobs:
     # RUNNING trials whose lease went silent past the TTL.  The lease file
     # is advisory state *about* the lock, never the mutual-exclusion
     # primitive itself — the O_CREAT|O_EXCL lock file keeps that role.
+    #
+    # Every write or unlink of a lease file runs under ``_lease_mutex``, so
+    # a renewal's read→check→write is a compare-and-swap: a reaper's clear
+    # (or a re-reservation's grant) that lands between the renewal's read
+    # and its write cannot be undone by that write.
+    @contextlib.contextmanager
+    def _lease_mutex(self):
+        """flock(2) on ``<queue>/leases.mutex``: one holder at a time
+        across the queue's threads and processes."""
+        fd = os.open(os.path.join(self.root, "leases.mutex"),
+                     os.O_CREAT | os.O_RDWR, 0o644)
+        try:
+            fcntl.flock(fd, fcntl.LOCK_EX)
+            yield
+        finally:
+            os.close(fd)  # releases the flock
+
     def grant_lease(self, tid, owner, ttl=None, attempt=1):
         ttl = self.lease_ttl if ttl is None else float(ttl)
-        now = time.time()
-        _write_doc(
-            self.lease_path(tid),
-            {
-                "owner": owner,
-                "granted_at": now,
-                "expires_at": now + ttl,
-                "attempt": int(attempt),
-            },
-            fsync_kind="lease",
-        )
+        with self._lease_mutex():
+            now = time.time()
+            _write_doc(
+                self.lease_path(tid),
+                {
+                    "owner": owner,
+                    "granted_at": now,
+                    "expires_at": now + ttl,
+                    "attempt": int(attempt),
+                },
+                fsync_kind="lease",
+            )
         stats = _store_stats
         if stats is not None:
             stats.record_lease("grant")
@@ -506,13 +529,16 @@ class FileJobs:
     def renew_lease(self, tid, owner, ttl=None):
         """Extend ``tid``'s lease iff ``owner`` still holds it; False
         means the lease was reclaimed (or never granted) and the caller
-        must drop its in-flight result."""
-        lease = self.read_lease(tid)
-        if lease is None or lease.get("owner") != owner:
-            return False
+        must drop its in-flight result.  The check and the write hold the
+        lease mutex, so a lease cleared or re-granted after the check is
+        never written back."""
         ttl = self.lease_ttl if ttl is None else float(ttl)
-        lease["expires_at"] = time.time() + ttl
-        _write_doc(self.lease_path(tid), lease, fsync_kind="lease")
+        with self._lease_mutex():
+            lease = self.read_lease(tid)
+            if lease is None or lease.get("owner") != owner:
+                return False
+            lease["expires_at"] = time.time() + ttl
+            _write_doc(self.lease_path(tid), lease, fsync_kind="lease")
         stats = _store_stats
         if stats is not None:
             stats.record_lease("renew")
@@ -524,7 +550,8 @@ class FileJobs:
 
     def clear_lease(self, tid):
         try:
-            os.unlink(self.lease_path(tid))
+            with self._lease_mutex():
+                os.unlink(self.lease_path(tid))
         except FileNotFoundError:
             return
         stats = _store_stats

@@ -22,13 +22,13 @@ FileTrials path imports:
 
 - :mod:`.fsck` — offline detect-and-repair for a FileTrials queue
   directory (torn docs and segments, orphan leases and locks, duplicate
-  tids, tmp droppings, a broken id allocator);
+  tids, tmp droppings, a broken id allocator) and for a service root
+  (every study's queue, its config, seed cursor and response journal);
   ``python -m hyperopt_tpu_torch.resilience.fsck``.  Its names load at
   first use, so ``python -m`` runs the module once.
 
-Not ported yet (ROADMAP.md, queue A item 5): the service-root checks of
-``fsck`` and the service client's circuit breaker.  All recovery events
-flow into :class:`hyperopt_tpu_torch.observability.FaultStats` counters.
+The service client's :class:`~.retry.CircuitBreaker` lives in
+:mod:`.retry` too.  All recovery events flow into :class:`hyperopt_tpu_torch.observability.FaultStats` counters.
 """
 
 from .device import (
@@ -39,6 +39,8 @@ from .device import (
 )
 from .leases import LeaseHeartbeat, LeaseReaper
 from .retry import (
+    CircuitBreaker,
+    CircuitOpenError,
     RetryPolicy,
     TrialQuarantined,
     TrialTimeout,
@@ -47,7 +49,7 @@ from .retry import (
     run_with_timeout,
 )
 
-_FSCK_NAMES = ("FsckReport", "fsck_path", "fsck_queue")
+_FSCK_NAMES = ("FsckReport", "fsck_path", "fsck_queue", "fsck_service_root")
 
 
 def __getattr__(name):
@@ -59,6 +61,8 @@ def __getattr__(name):
 
 
 __all__ = [
+    "CircuitBreaker",
+    "CircuitOpenError",
     "DeviceRecovery",
     "FsckReport",
     "LeaseHeartbeat",
@@ -71,6 +75,7 @@ __all__ = [
     "execute_with_retry",
     "fsck_path",
     "fsck_queue",
+    "fsck_service_root",
     "is_device_error",
     "mark_device_error",
     "run_with_timeout",

@@ -46,9 +46,10 @@ FS412     orphaned segment file (referenced by neither the manifest's
 
 FS405 and FS407 read the optimization service's seed-cursor attachment
 and response journal, which live in the queue directory (their names and
-format are the reference's); the service itself, and the service-root
-checks (the replica plane's FS409, ``fsck_service_root``), wait for the
-service slice (ROADMAP.md queue A item 5).
+format are the reference's).  :func:`fsck_service_root` checks every
+study queue under a service root's ``studies/``.  The replica plane's
+FS409 (``replicas/``) is not ported: a root that has one raises
+(ROADMAP.md, queue A item 5).
 
 Offline by design: run it on a queue no process is writing.  Repairs are
 individually crash-safe (atomic rename/replace or unlink).
@@ -767,19 +768,40 @@ def fsck_queue(qdir, repair=False, report: FsckReport = None) -> FsckReport:
     return report
 
 
-def fsck_path(path, repair=False) -> FsckReport:
-    """fsck a queue directory (has ``trials/`` or ``segments/``).  A
-    service root (``studies/`` or ``replicas/``) raises: its checks wait
-    for the service slice (ROADMAP.md queue A item 5)."""
-    path = os.path.abspath(path)
-    if os.path.isdir(os.path.join(path, "studies")) or os.path.isdir(
-        os.path.join(path, "replicas")
-    ):
+def fsck_service_root(root, repair=False) -> FsckReport:
+    """fsck every study queue under an optimization-service root
+    (``<root>/studies/<study_id>/``).  A root with a replica plane
+    (``replicas/``) raises: FS409 is not ported (ROADMAP.md, queue A
+    item 5)."""
+    root = os.path.abspath(root)
+    _refuse_replica_plane(root)
+    report = FsckReport(root=root, repair=repair)
+    studies_dir = os.path.join(root, "studies")
+    if os.path.isdir(studies_dir):
+        for name in sorted(os.listdir(studies_dir)):
+            qdir = os.path.join(studies_dir, name)
+            if os.path.isdir(qdir):
+                fsck_queue(qdir, repair=repair, report=report)
+    return report
+
+
+def _refuse_replica_plane(root):
+    if os.path.isdir(os.path.join(root, "replicas")):
         raise NotImplementedError(
-            f"{path} is a service root: its fsck is not ported to "
-            "hyperopt_tpu_torch yet (ROADMAP.md: queue A item 5); "
-            "check each study's queue directory instead"
+            f"{root} has a replica plane (replicas/): its checks (FS409) "
+            "are not ported to hyperopt_tpu_torch yet (ROADMAP.md: queue "
+            "A item 5, the rest of service/replicas.py)"
         )
+
+
+def fsck_path(path, repair=False) -> FsckReport:
+    """fsck a service root (has ``studies/``) or a single queue dir (has
+    ``trials/`` or ``segments/``) — detected by layout.  A root with
+    ``replicas/`` raises (see :func:`fsck_service_root`)."""
+    path = os.path.abspath(path)
+    _refuse_replica_plane(path)
+    if os.path.isdir(os.path.join(path, "studies")):
+        return fsck_service_root(path, repair=repair)
     return fsck_queue(path, repair=repair)
 
 
@@ -791,12 +813,13 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(
         prog="python -m hyperopt_tpu_torch.resilience.fsck",
-        description="Check (and repair) a FileTrials queue directory: torn "
+        description="Check (and repair) a FileTrials queue directory or "
+                    "an optimization-service root: torn "
                     "docs, orphan leases/locks, duplicate tids, stale "
                     "seed cursors, tmp droppings, torn journals and "
                     "segments, a broken id allocator.",
     )
-    ap.add_argument("root", help="queue directory")
+    ap.add_argument("root", help="queue directory or service root")
     ap.add_argument(
         "--repair", action="store_true",
         help="apply repairs (default: dry-run report only)",

@@ -1,7 +1,7 @@
 """Per-trial retry policy: backoff, jitter, timeouts, quarantine.
 
-Reference parity: ``hyperopt_tpu/resilience/retry.py`` without the
-service client's circuit breaker (the service is not ported yet).
+Reference parity: ``hyperopt_tpu/resilience/retry.py``, with the
+service client's circuit breaker (:class:`CircuitBreaker`).
 
 A flaky objective (transient OOM, a preempted data source, a network
 hiccup) or a hung one must not abort a whole ``fmin`` run.  This module
@@ -129,6 +129,81 @@ def backoff_delay(policy: RetryPolicy, attempt: int, key=0) -> float:
         frac = _unit_hash(policy.seed, key, attempt)
         base *= 1.0 + policy.jitter * (2.0 * frac - 1.0)
     return base
+
+
+class CircuitOpenError(Exception):
+    """The circuit breaker is open: the peer has failed ``threshold``
+    consecutive times and the cooldown has not elapsed.  ``retry_in``
+    says how long until the breaker half-opens for a probe."""
+
+    def __init__(self, msg, retry_in=0.0):
+        super().__init__(msg)
+        self.retry_in = float(retry_in)
+
+
+class CircuitBreaker:
+    """Trip-after-N circuit breaker for a flaky peer (the service
+    client wraps every HTTP round-trip in one).
+
+    Closed → open after ``threshold`` CONSECUTIVE transport failures
+    (an HTTP error response counts as success at this layer: the peer
+    answered).  While open, :meth:`before_request` reports how long
+    until the next probe is allowed; after ``cooldown`` seconds the
+    breaker half-opens — ONE caller gets through, and its outcome
+    closes or re-opens the circuit.  Thread-safe.
+    """
+
+    # lock-order: _lock
+    def __init__(self, threshold=5, cooldown=1.0, clock=time.monotonic):
+        if threshold < 1:
+            raise ValueError(f"threshold must be >= 1, got {threshold}")
+        self.threshold = int(threshold)
+        self.cooldown = float(cooldown)
+        self._clock = clock
+        self._lock = threading.Lock()
+        self._failures = 0  # guarded-by: _lock
+        self._opened_at = None  # guarded-by: _lock
+        self._probing = False  # guarded-by: _lock
+
+    @property
+    def state(self) -> str:
+        with self._lock:
+            if self._opened_at is None:
+                return "closed"
+            if self._probing:
+                return "half-open"
+            if self._clock() - self._opened_at >= self.cooldown:
+                return "half-open"
+            return "open"
+
+    def before_request(self) -> float:
+        """0.0 = proceed (and, when half-open, this caller IS the
+        probe); > 0.0 = the breaker is open for that many more seconds
+        and the caller must wait or fail fast."""
+        with self._lock:
+            if self._opened_at is None:
+                return 0.0
+            remaining = self.cooldown - (self._clock() - self._opened_at)
+            if remaining > 0.0:
+                return remaining
+            if self._probing:
+                # someone else holds the half-open probe slot
+                return self.cooldown / 2.0
+            self._probing = True
+            return 0.0
+
+    def record_success(self):
+        with self._lock:
+            self._failures = 0
+            self._opened_at = None
+            self._probing = False
+
+    def record_failure(self):
+        with self._lock:
+            self._failures += 1
+            self._probing = False
+            if self._failures >= self.threshold:
+                self._opened_at = self._clock()
 
 
 def run_with_timeout(fn, timeout, stats=None):

@@ -42,6 +42,21 @@ from hyperopt_tpu_torch.parallel.worker import (
 CPU_RAND = partial(rand.suggest, device="cpu")
 
 
+@pytest.fixture(autouse=True)
+def _restore_cwd():
+    """Each worker chdirs the whole process into its trial's workdir and
+    back; threaded workers restore in any order, so a test can end with
+    the process inside one of its workdirs, which its temporary directory
+    then deletes.  The next test would inherit a cwd that ``os.getcwd``
+    cannot read (every later trial fails, and a worker loop that does not
+    survive that leaves fmin waiting for ever)."""
+    cwd = os.getcwd()
+    try:
+        yield
+    finally:
+        os.chdir(cwd)
+
+
 def quad_objective(cfg):
     return (cfg["x"] - 3) ** 2
 
@@ -955,6 +970,11 @@ def test_max_speculation_zero_is_the_reference_loop(tmp_path):
                     w.run_one(reserve_timeout=0.5)
                 except wk.ReserveTimeout:
                     continue
+                except Exception:
+                    # a failed trial is recorded in its doc; the worker
+                    # lives on, as run_workers' do, so fmin cannot wait
+                    # on a queue nobody serves
+                    time.sleep(0.05)
 
         threads = [threading.Thread(target=loop, daemon=True) for _ in range(2)]
         for t in threads:
@@ -1036,8 +1056,10 @@ def _write_port_docs(trials):
 def test_entry_points_import_no_jax():
     """``from hyperopt_tpu_torch import FileTrials, MongoTrials,
     SparkTrials``, the space lint, the telemetry and profiler modules, the
-    device recovery and the queue fsck, and ``python -m
-    hyperopt_tpu_torch.parallel.worker --help`` import neither ``jax`` nor
+    device recovery and the queue fsck, the optimization service and its
+    planes (compile ledger, SLO engine, control), and ``python -m
+    hyperopt_tpu_torch.parallel.worker --help`` and ``python -m
+    hyperopt_tpu_torch.service --help`` import neither ``jax`` nor
     ``hyperopt_tpu`` (fresh interpreter); the migration stubs point to the
     port's backends."""
     code = (
@@ -1051,9 +1073,17 @@ def test_entry_points_import_no_jax():
         "        assert hint in str(e), e\n"
         "from hyperopt_tpu_torch import analysis, observability, profiling\n"
         "from hyperopt_tpu_torch.resilience import DeviceRecovery, fsck_queue\n"
+        "from hyperopt_tpu_torch.resilience import CircuitBreaker, fsck_service_root\n"
+        "from hyperopt_tpu_torch.service import OptimizationService, ServiceClient\n"
+        "from hyperopt_tpu_torch import compile_ledger, control, slo\n"
         "sys.argv = ['hyperopt-tpu-torch-worker', '--help']\n"
         "try:\n"
         "    runpy.run_module('hyperopt_tpu_torch.parallel.worker', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        "sys.argv = ['hyperopt-tpu-torch-service', '--help']\n"
+        "try:\n"
+        "    runpy.run_module('hyperopt_tpu_torch.service', run_name='__main__')\n"
         "except SystemExit as e:\n"
         "    assert e.code == 0, e.code\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
@@ -1065,3 +1095,4 @@ def test_entry_points_import_no_jax():
                          timeout=120, cwd=REPO)
     assert out.returncode == 0, out.stderr
     assert "--queue" in out.stdout and out.stdout.strip().endswith("clean")
+    assert "--device" in out.stdout and "--root" in out.stdout

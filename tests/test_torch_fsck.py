@@ -325,7 +325,8 @@ def test_cli_exit_codes_and_json(tmp_path, capsys):
 def test_module_entry_point_and_service_root(tmp_path):
     """``python -m hyperopt_tpu_torch.resilience.fsck <queue>`` exits 0 on a
     clean queue, with no warning and without importing JAX; a service root
-    raises, naming the slice its checks wait for."""
+    (``studies/``) is checked study by study, and one with a replica plane
+    (``replicas/``) raises, naming the slice its checks wait for."""
     q = str(tmp_path / "q")
     _mk_queue(tft, q)
     code = ("import runpy, sys\n"
@@ -346,6 +347,10 @@ def test_module_entry_point_and_service_root(tmp_path):
                          capture_output=True, text=True, timeout=120, cwd=REPO)
     assert out.returncode == 0 and not out.stderr, out.stderr
     os.makedirs(tmp_path / "root" / "studies")
+    shutil.copytree(q, tmp_path / "root" / "studies" / "s")
+    report = tfsck.fsck_path(str(tmp_path / "root"))
+    assert report.clean and report.summary()["n_queues"] == 1
+    os.makedirs(tmp_path / "root" / "replicas")
     with pytest.raises(NotImplementedError, match="queue A item 5"):
         tfsck.fsck_path(str(tmp_path / "root"))
     assert tfsck.fsck_path(q).clean

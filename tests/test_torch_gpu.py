@@ -6,6 +6,8 @@ Without a card every test here skips; whether a card is present is decided
 inside the ``cuda`` fixture, never at import.
 """
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -349,7 +351,7 @@ def test_file_trials_with_threaded_workers_on_card(cuda, monkeypatch, tmp_path):
     assert trials.new_trial_ids(2000) == list(range(2000))
     cs.prefilled_trials(T, 2000, trials=trials)
     kw = dict(n_EI_candidates=4096)
-    calls, tally = [], {"pairs": 0, "close": 0, "ties": []}
+    calls, tally = [], {"pairs": 0, "close": 0, "ties": [], "split": []}
 
     def card_and_cpu(new_ids, domain, trials_, seed):
         # a plain function: the engine stays off and the loop is serial
@@ -366,6 +368,7 @@ def test_file_trials_with_threaded_workers_on_card(cuda, monkeypatch, tmp_path):
         tally["pairs"] += pairs
         tally["close"] += close
         tally["ties"] += cs.near_ties(T, domain, trials_, new_ids, mismatches, **kw)
+        tally["split"] += cs.split_mismatches(T, domain, trials_, new_ids, mismatches, **kw)
         return cards[0]
 
     stop = threading.Event()
@@ -395,7 +398,111 @@ def test_file_trials_with_threaded_workers_on_card(cuda, monkeypatch, tmp_path):
     # one launch per unquantized family (lr+sigma, momentum+z): the fresh
     # Trials' suggest, then 8 seeds against the CPU
     assert calls and all(launched == 2 * 9 for _, launched in calls), calls
-    cs.assert_agreement(tally["pairs"], tally["close"], tally["ties"])
+    cs.assert_agreement(tally["pairs"], tally["close"], tally["ties"], tally["split"])
+
+
+def _draw_stages(T, domain, trials, ids, seed, label, device, **kw):
+    """One unquantized label's candidate draw of ``tpe.suggest`` (what
+    ``tpe.plain_label_scores`` draws), stage by stage on ``device``: the
+    below mixture's Parzen fit ``w``/``mu``/``sigma``, the draw's table
+    (``ops.gmm.draw_param_rows``), the picked component's ``mu`` and
+    ``sigma·t``, the fit-space draw ``x = mu + sigma·t`` and the raw
+    value."""
+    from hyperopt_tpu_torch.algos import tpe_device as td
+    from hyperopt_tpu_torch.ops import gmm as gmm_ops
+    from hyperopt_tpu_torch.ops import parzen as parzen_ops
+
+    requests, _ = T.tpe.suggest_prepare(ids, domain, trials, seed, device=device, **kw)
+    fams = td.device_history_for(trials, domain.space, device).families.values()
+    for (kind, args, st), fam in zip(requests, fams):
+        if label not in fam.labels:
+            continue
+        i = fam.labels.index(label)
+        u, obs, pos, counts, losses, keep, n_below, pw, prior, lock_c, lock_r = args
+        below, nb, _, _ = td._split_pack(obs, pos, counts, td._loss_ranks(losses, keep), keep,
+                                         n_below, lock_c, lock_r, st["cap_b"],
+                                         lock_fallback=False)
+        pm, ps, lo, hi, _ = prior.unbind(dim=1)
+        B = parzen_ops.adaptive_parzen_normal_padded(below, nb, pw, pm, ps, st["lf"])
+        rows = gmm_ops.draw_param_rows(*B, lo, hi)
+        # gmm_ops.draw_from_rows, keeping its intermediates
+        cdf = rows[:, 0].contiguous()
+        total = cdf[:, -1:]
+        tt = torch.minimum(u[:, 0] * total, total * (1.0 - 1e-6))
+        comp = torch.searchsorted(cdf, tt.contiguous(), right=True).clamp_(0, cdf.shape[1] - 1)
+        ea, eb = rows[:, 3].gather(1, comp), rows[:, 4].gather(1, comp)
+        uu = torch.maximum(ea, gmm_ops._fma(u[:, 1], eb - ea, ea))
+        t = gmm_ops._SQRT2 * gmm_ops.erfinv_f32(uu)
+        t = torch.minimum(torch.maximum(t, rows[:, 5].gather(1, comp)), rows[:, 6].gather(1, comp))
+        mu_c, sg_c = rows[:, 1].gather(1, comp), rows[:, 2].gather(1, comp)
+        x = gmm_ops._fma(sg_c, t, mu_c)
+        raw = torch.exp(x) if st["log_scale"] else x
+        out = {"w": B[0][i], "mu": B[1][i], "sigma": B[2][i], "rows": rows[i], "comp": comp[i],
+               "log1p": -torch.log1p(-uu * uu)[i], "t": t[i],
+               "mu_c": mu_c[i], "sigma_t": (sg_c * t)[i], "x": x[i], "raw": raw[i]}
+        return {k: v.cpu().numpy() for k, v in out.items()}
+    raise KeyError(label)
+
+
+def _ulps(a, b):
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    return np.abs(a.view(np.int32).astype(np.int64) - b.view(np.int32).astype(np.int64))
+
+
+def test_card_draws_hold_the_draw_contract(cuda, monkeypatch):
+    """At the agreement test's history (``prefilled_trials(T, 2000)``, 4096
+    candidates, two ids, seeds 0–7), every unquantized label's candidate
+    draw on the card against the CPU's from the same streams, stage by
+    stage (``_draw_stages``), held to the port's contract for its draw
+    against JAX's (``tests/test_torch_ops.py::
+    test_gmm_sample_with_jax_streams``: at least 98% within 2 ulps, all
+    within rtol 2e-6 and 2 ulps of the sample's scale ``max |x|``) where
+    the draw is rounded: the fit-space ``x = mu + sigma·t`` (a log-scale
+    label's raw value is ``exp(x)``, which turns an ulp of ``x`` into up
+    to ``|x|`` ulps of the raw value).  The Parzen fit is the CPU's bit
+    for bit.  The printed line carries, per stage, how many values differ
+    and by how many ulps: ``log1p`` (in ``erfinv``) is where the card's
+    arithmetic first departs from the CPU's; ``t`` and ``x`` follow, and
+    ``max_ulps_of_scale`` reads ``x``'s gap in ulps of each candidate's
+    own ``max(|mu|, |sigma·t|)``."""
+    import chip_smoke as cs
+    import hyperopt_tpu_torch as T
+
+    monkeypatch.setenv("HYPEROPT_TPU_SCORER", "pallas")
+    trials = cs.prefilled_trials(T, 2000)
+    domain = T.Domain(cs.bench_objective, cs.bench_space(T.hp))
+    ids, kw = [2000, 2001], dict(n_EI_candidates=4096)
+    stats, outside = {}, []
+
+    def tally(lb, stage, card, cpu):
+        slot = stats.setdefault(lb, {}).setdefault(stage, {"values": 0, "differ": 0, "max_ulps": 0})
+        d = _ulps(card, cpu)
+        slot["values"] += int(d.size)
+        slot["differ"] += int((d > 0).sum())
+        slot["max_ulps"] = max(slot["max_ulps"], int(d.max()))
+        return slot, d
+
+    eps = float(np.finfo(np.float32).eps)
+    with cs.cpu_drawn_streams():
+        for seed in range(8):
+            for lb in ("lr", "sigma", "momentum", "z"):
+                cpu = _draw_stages(T, domain, trials, ids, seed, lb, "cpu", **kw)
+                card = _draw_stages(T, domain, trials, ids, seed, lb, "cuda", **kw)
+                for stage in ("w", "mu", "sigma", "rows", "log1p", "t", "raw"):
+                    tally(lb, stage, card[stage], cpu[stage])
+                assert (card["comp"] == cpu["comp"]).all(), (seed, lb)
+                slot, d = tally(lb, "x", card["x"], cpu["x"])
+                own = np.maximum(np.abs(cpu["mu_c"]), np.abs(cpu["sigma_t"]))
+                gap = np.abs(card["x"].astype(np.float64) - cpu["x"])
+                slot["max_ulps_of_scale"] = max(slot.get("max_ulps_of_scale", 0.0), float(
+                    (gap / np.spacing(own.astype(np.float32))).max()))
+                x_cpu = cpu["x"].reshape(len(ids), -1)
+                allow = 2e-6 * np.abs(x_cpu) + 2 * eps * np.abs(x_cpu).max(axis=1, keepdims=True)
+                if (d <= 2).mean() < 0.98 or (gap.reshape(x_cpu.shape) > allow).any():
+                    outside.append((seed, lb, float((d <= 2).mean())))
+    print("draw_stages", json.dumps(stats))
+    assert all(stats[lb][k]["differ"] == 0 for lb in stats for k in ("w", "mu", "sigma")), stats
+    assert not outside, (outside, stats)
 
 
 def _pipelined_run(T, cs, observer=None, n=6):
@@ -481,3 +588,67 @@ def test_profiler_device_seconds_from_cuda_events_on_card(cuda, monkeypatch):
             tpe_device._suggest_observers.remove(also_events)
     assert stats.n_dispatches == 3
     assert stats.summary()["memory"]["backend_peak_bytes"] > 0
+
+
+def test_service_batched_dispatch_on_card(cuda, monkeypatch):
+    """Two studies' suggests held until both are queued, then served by
+    ``OptimizationService(device="cuda")`` as ONE batched dispatch: the
+    pair-score kernel launched 2 x 2 times (two unquantized families per
+    study), and each study's docs equal its unbatched suggest on the card
+    from the same history and seed."""
+    import copy
+    import threading
+    import time
+
+    import chip_smoke as cs
+    import hyperopt_tpu_torch as T
+    from hyperopt_tpu_torch.fmin import space_eval
+    from hyperopt_tpu_torch.service import OptimizationService
+
+    monkeypatch.setenv("HYPEROPT_TPU_SCORER", "pallas")  # no probe: the pair-score kernel
+    space = cs.bench_space(T.hp)
+    ap = {"n_startup_jobs": 4, "n_EI_candidates": 1024}
+    svc = OptimizationService(root=None, device="cuda", batch_window=0.05, warmup=False)
+    gate, results, errors = threading.Event(), {}, []
+    try:
+        for i, sid in enumerate(("a", "b")):
+            svc.create_study(sid, space, seed=i, algo="tpe", algo_params=ap)
+            for _ in range(6 + 3 * i):  # different history sizes on purpose
+                (t,) = svc.suggest(sid)
+                svc.report(sid, t["tid"], loss=cs.bench_objective(space_eval(space, t["vals"])))
+        expected = {}
+        for sid in ("a", "b"):
+            study = svc.registry.get(sid)
+            seed = int(copy.deepcopy(study.rstate).integers(2 ** 31 - 1))
+            trials = T.trials_from_docs(copy.deepcopy(study.trials._dynamic_trials))
+            tid = len(trials.trials)
+            (doc,) = T.tpe.suggest([tid], study.domain, trials, seed, device="cuda", **ap)
+            expected[sid] = {k: v[0] for k, v in doc["misc"]["vals"].items() if v}
+        svc.scheduler.call_soon(lambda: gate.wait(60))  # hold the scheduler
+
+        def call(sid):
+            try:
+                results[sid] = svc.suggest(sid, timeout=120)
+            except Exception as e:  # pragma: no cover - debug aid
+                errors.append(e)
+
+        threads = [threading.Thread(target=call, args=(sid,)) for sid in ("a", "b")]
+        for t in threads:
+            t.start()
+        deadline = time.monotonic() + 60
+        while len(svc.scheduler._queue) < 2 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert len(svc.scheduler._queue) == 2
+        dispatches = svc.stats.summary()["n_dispatches"]
+        before = pair_score_batched.launches
+        gate.set()
+        for t in threads:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in threads) and not errors, errors
+        assert svc.stats.summary()["n_dispatches"] == dispatches + 1
+        assert pair_score_batched.launches - before == 2 * 2
+        for sid in ("a", "b"):
+            assert results[sid][0]["vals"] == expected[sid]
+    finally:
+        gate.set()
+        svc.close()

@@ -28,6 +28,19 @@ from hyperopt_tpu_torch.parallel import file_trials as tft
 MODS = (jo, to)
 
 
+@pytest.fixture(autouse=True)
+def _readable_cwd():
+    """Threaded queue workers of an earlier test file in this process (the
+    JAX package's ``tests/test_file_trials.py``) can leave its cwd in a
+    deleted temporary directory; this file's subprocesses and lazy imports
+    need a cwd that exists."""
+    try:
+        os.getcwd()
+    except FileNotFoundError:
+        os.chdir(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    yield
+
+
 def test_phase_timings_equal():
     a, b = jo.PhaseTimings(), to.PhaseTimings()
     for t in (a, b):

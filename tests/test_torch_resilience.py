@@ -322,12 +322,48 @@ class TestLeases:
             assert reaper.reap_once() == 0
             assert trials.jobs.read_doc(0)["state"] == JOB_STATE_RUNNING
             assert stats.get("heartbeat") >= 3
-            # now the reaper wins (simulate: lease cleared under us)
+            # now the reaper wins (simulate: lease cleared under us); the
+            # next renewal finds it gone, whenever the thread runs next
             trials.jobs.clear_lease(0)
-            time.sleep(0.15)
+            deadline = time.monotonic() + 5.0
+            while not hb.lost and time.monotonic() < deadline:
+                time.sleep(0.01)
             assert hb.lost
         finally:
             hb.stop()
+
+    def test_renewal_never_undoes_a_reclaim(self, tmp_path):
+        """A reaper's clear that lands while a renewal sits between its
+        read of the lease and its write waits for that write, so the lease
+        stays cleared and the next renewal reports it lost (a
+        read→check→write renewal without the lease mutex wrote it back)."""
+        jobs = FileJobs(str(tmp_path), lease_ttl=5.0)
+        jobs.insert(_doc(0))
+        jobs.reserve("w1")
+        read = jobs.read_lease
+        in_window = threading.Event()
+
+        def read_then_stall(tid):
+            lease = read(tid)
+            in_window.set()
+            time.sleep(0.2)  # widens the read→write window, asserts nothing
+            return lease
+
+        jobs.read_lease = read_then_stall
+        renewed = []
+        renewer = threading.Thread(
+            target=lambda: renewed.append(jobs.renew_lease(0, "w1")))
+        renewer.start()
+        try:
+            assert in_window.wait(timeout=10.0)
+            jobs.clear_lease(0)  # the reaper's reclaim
+        finally:
+            renewer.join(timeout=10.0)
+        assert not renewer.is_alive()
+        jobs.read_lease = read
+        assert renewed == [True]
+        assert jobs.read_lease(0) is None
+        assert jobs.renew_lease(0, "w1") is False
 
     def test_worker_drops_stale_result(self, tmp_path):
         # lease reclaimed while the worker evaluates -> its result is
@@ -542,6 +578,18 @@ class TestChaos:
 # ---------------------------------------------------------------------
 # crash-recovery E2E (the satellite gate)
 # ---------------------------------------------------------------------
+
+@pytest.fixture(autouse=True)
+def _restore_cwd():
+    """Threaded workers chdir the whole process into trial workdirs and
+    restore in any order; a test must not hand the next one a cwd inside
+    its (possibly deleted) temporary directory."""
+    cwd = os.getcwd()
+    try:
+        yield
+    finally:
+        os.chdir(cwd)
+
 
 def _supervised_workers(qdir, n_workers, lease_ttl, stats):
     """Respawning worker-thread slots (a killed worker is replaced)."""

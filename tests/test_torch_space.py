@@ -184,7 +184,11 @@ def test_import_hygiene():
         "        'algos.anneal', 'algos.criteria', 'algos.mix', 'algos.atpe',\n"
         "        'models.domains', 'parallel.torch_trials', 'analysis',\n"
         "        'analysis.diagnostics', 'analysis.space_lint', 'profiling',\n"
-        "        'resilience.fsck', 'observability')]\n"
+        "        'resilience.fsck', 'observability', 'service', 'service.core',\n"
+        "        'service.server', 'service.client', 'service.replicas',\n"
+        "        'service.__main__', 'compile_ledger', 'slo', 'control',\n"
+        "        'control.knobs', 'control.objective', 'control.actuation',\n"
+        "        'control.controller')]\n"
         "assert all(m in sys.modules for m in need), need\n"
         "print(sum(m.startswith('hyperopt_tpu_torch') for m in sys.modules))\n"
     )

@@ -435,3 +435,29 @@ def test_near_tie_rule_reads_the_suggests_own_scores():
     for t in ties:
         assert t["gap"] == full[(t["seed"], t["label"])] >= 0.0, t
         assert t["allow"] > 0
+
+
+def test_mismatch_split_on_the_cpu():
+    """``chip_smoke.split_mismatches`` (the card test's diagnosis of its
+    card-vs-CPU mismatches) with the CPU standing in for the card: a
+    made-up "card" winner at the CPU's runner-up is an order mismatch that
+    the plain scorer undoes, and one at the CPU winner's own candidate
+    moved by an ulp is a draw mismatch."""
+    import chip_smoke as cs
+
+    n = 300
+    domain, trials = _prefilled(n)
+    ids, kw = [n, n + 1], dict(n_EI_candidates=256)
+    docs = T.tpe.suggest(ids, domain, trials, 3, device="cpu", **kw)
+    cands, s = T.tpe.plain_label_scores(ids, domain, trials, 3, "lr", **kw)
+    order = np.argsort(-s[1], kind="stable")
+    win = docs[1]["misc"]["vals"]["lr"][0]
+    assert cands[1, order[0]] == np.float32(win)
+    up = float(np.nextafter(np.float32(win), np.float32(np.inf)))
+    rows = cs.split_mismatches(T, domain, trials, ids, [
+        (3, 1, "lr", float(cands[1, order[1]]), win), (3, 1, "lr", up, win)],
+        card="cpu", **kw)
+    assert [r["cause"] for r in rows] == ["order_kernel", "draw"], rows
+    assert rows[0]["plain_gap_on_card"] > 0.0
+    assert cs.split_tables(rows)["causes"] == {"order_kernel": 1, "draw": 1}
+    assert cs.split_tables(rows)["card_winner_not_a_card_candidate"] == 1

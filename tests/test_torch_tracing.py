@@ -28,6 +28,19 @@ from hyperopt_tpu_torch.tracing import (
 )
 
 
+@pytest.fixture(autouse=True)
+def _readable_cwd():
+    """Threaded queue workers of an earlier test file in this process (the
+    JAX package's ``tests/test_file_trials.py``) can leave its cwd in a
+    deleted temporary directory; this file's subprocesses and lazy imports
+    need a cwd that exists."""
+    try:
+        os.getcwd()
+    except FileNotFoundError:
+        os.chdir(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    yield
+
+
 class TestSpans:
     def test_nesting_within_a_thread(self):
         tracer = Tracer(sample=1.0)
