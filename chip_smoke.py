@@ -130,7 +130,27 @@ non-zero without the final line):
     served no cold suggest, exposes the service histograms and the
     profiler's rows on ``/metrics`` and breaches no SLO; SIGTERM exits 0
     and ``python -m hyperopt_tpu_torch.service fsck`` reports clean.
-24. ``timing``: each kernel, its plain version and one PyTorch library call
+24. ``replica_failover``: two ``python -m hyperopt_tpu_torch.service
+    --replica-id`` processes (``r1``, ``r2``, lease TTL 3 s) on one root
+    and one card.  4 ``tpe`` studies created through a two-replica
+    ``ServiceClient`` (names the ring splits 2 and 2), SIGTERM of both
+    (every lease released, fence kept), each study's directory given the
+    10,000-trial history, the leases handed back to their owners, both
+    restarted; 4 concurrent rounds (the bench objective plus a 50 ms
+    sleep), ``kill -9`` of ``r1``, then the first suggest of every study
+    one at a time (the migrated ones first; the client rides through on
+    ring failover and idempotent retries) and 3 concurrent rounds.  Checks:
+    ``r2`` owns all 4; each takeover ok, fsck-clean, pre-warmed and under
+    the 30 s MTTR bound; no first suggest after the kill is cold; ``r2``
+    launched the pair-score kernel for them (its ``kernel_launches``);
+    every study holds history + 8 trials, equal to a single-replica twin
+    on the card; no lease renewal lost, no stale write dropped; SL608
+    ``ok``; SIGTERM of ``r2`` exits 0 with every lease released and
+    ``fsck`` of the root (FS409 included) exits 0.  Prints kill-to-expiry
+    seconds, each takeover's split, the client-seen gap, wall ms per trial
+    before and after the kill, ``r2``'s p50/p99 after it, and the
+    phase's seconds.
+25. ``timing``: each kernel, its plain version and one PyTorch library call
     computing the same function, by CUDA events at the main-path shape;
     the kernel's device ms per launch (``torch.profiler``); its bound, the
     larger of the f32 operations at the f32 peak, the issue slots and SFU
@@ -141,7 +161,9 @@ non-zero without the final line):
 Every phase but ``fused_probe`` runs with ``HYPEROPT_TPU_FUSED_PROBE=0``,
 so the probe does not change the tier the others measure.  Then the
 ``kernels`` line (with ``launches_service``, each kernel's launches in
-the service phase's concurrent run), the ``nvidia-smi`` line, and last
+the service phase's concurrent run, and ``launches_replica_failover``,
+the surviving replica's launches after the kill), the ``nvidia-smi``
+line, and last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of
 ``hyperopt_tpu``; needs one card.
 """
@@ -2227,13 +2249,13 @@ def gated_batch(T, svc, sids, kw, around=contextlib.nullcontext):
             after["dispatch_s"] - before["dispatch_s"])
 
 
-def spawn_service(root, port, log):
-    """``python -m hyperopt_tpu_torch.service --root ROOT --port PORT`` (the
-    card by default) as a process of its own, its output into ``log``."""
+def spawn_service(root, port, log, *args):
+    """``python -m hyperopt_tpu_torch.service --root ROOT --port PORT ARGS``
+    (the card by default) as a process of its own, its output into ``log``."""
     env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
     return subprocess.Popen(
         [sys.executable, "-m", "hyperopt_tpu_torch.service", "--root", root,
-         "--port", str(port)],
+         "--port", str(port), *args],
         env=env, cwd=os.path.dirname(os.path.abspath(__file__)),
         stdout=log, stderr=subprocess.STDOUT)
 
@@ -2439,6 +2461,271 @@ def phase_service(T, counters):
     return out["concurrent"]["launches"]
 
 
+REPLICA_TTL = 3.0  # heartbeats every 1 s: margin for a launch-heavy scheduler
+REPLICA_ROUNDS = 4  # suggest/report rounds per study before the kill, and after it
+
+
+def spread_names(ring, urls, per_url, prefix):
+    """Study ids whose ring primaries cover ``urls`` ``per_url`` times each."""
+    want = {u: per_url for u in urls}
+    names, i = [], 0
+    while sum(want.values()):
+        sid = f"{prefix}-{i}"
+        i += 1
+        if want.get(ring.primary(sid), 0) > 0:
+            want[ring.primary(sid)] -= 1
+            names.append(sid)
+        assert i < 10_000, "the ring never covered the requested spread"
+    return names
+
+
+def metric_value(text, name):
+    for line in text.splitlines():
+        if line.startswith(name + " "):
+            return float(line.split()[-1])
+    raise AssertionError(f"{name} not on /metrics")
+
+
+def suggest_hist(text):
+    """(edges, per-bucket counts) of the suggest-latency histogram on
+    ``/metrics`` (cumulative buckets in the exposition)."""
+    edges, cum = [], []
+    for line in text.splitlines():
+        if line.startswith("hyperopt_service_suggest_duration_seconds_bucket"):
+            le = line.split('le="')[1].split('"')[0]
+            cum.append(int(float(line.split()[-1])))
+            if le != "+Inf":
+                edges.append(float(le))
+    return edges, [c - p for c, p in zip(cum, [0] + cum[:-1])]
+
+
+def drive_replica_clients(T, client, sids, rounds, served, concurrent=True):
+    """``rounds`` suggest/report rounds per study through one multi-replica
+    client, one thread per study (``concurrent``) or one study after
+    another; the bench objective plus OBJECTIVE_SLEEP_S.  Appends each
+    served value dict to ``served[sid]``; returns, per study, the wall
+    times its first and its last suggest returned and the seconds its
+    first suggest call took (``{sid: {"first", "last", "first_call_s"}}``),
+    and the phase's wall seconds."""
+    from hyperopt_tpu_torch.fmin import space_eval
+
+    space, errors, marks = bench_space(T.hp), [], {}
+
+    def run(sid):
+        try:
+            for i in range(rounds):
+                t_call = time.perf_counter()
+                (t,) = client.suggest(sid)
+                t_back = time.perf_counter()
+                if i == 0:
+                    marks[sid] = {"first": t_back, "first_call_s": t_back - t_call}
+                marks[sid]["last"] = t_back
+                served[sid].append(t["vals"])
+                cfg = space_eval(space, t["vals"])
+                check_bench_values(cfg)
+                time.sleep(OBJECTIVE_SLEEP_S)
+                client.report(sid, t["tid"], loss=float(bench_objective(cfg)))
+        except Exception as e:  # raised below, after every thread ended
+            errors.append(e)
+
+    t0 = time.perf_counter()
+    if concurrent:
+        threads = [threading.Thread(target=run, args=(sid,)) for sid in sids]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        assert not any(t.is_alive() for t in threads), "a client thread hung"
+    else:
+        for sid in sids:
+            run(sid)
+    assert not errors, errors
+    return marks, time.perf_counter() - t0
+
+
+def phase_replica_failover(T):
+    """Two CLI replicas on one root and one card: 4 studies split by the
+    ring, ``kill -9`` of one replica, its studies adopted by the survivor
+    (fsck-clean, pre-warmed, served warm), every trajectory equal to a
+    single-replica twin.  Returns the survivor's kernel launches in the
+    run after the kill."""
+    from hyperopt_tpu_torch.observability import quantile_from_counts
+    from hyperopt_tpu_torch.service import ServiceClient, StudyRegistry, free_port
+    from hyperopt_tpu_torch.service.replicas import ReplicaDirectory, StudyLeaseStore
+
+    t_phase = time.perf_counter()
+    kw = dict(n_EI_candidates=N_CAND)
+    space = bench_space(T.hp)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    base = os.path.join(repo, "build", "replica_smoke")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    root = os.path.join(base, "root")
+    ports = [free_port(), free_port()]
+    urls = [f"http://127.0.0.1:{p}" for p in ports]
+    rids = ["r1", "r2"]
+    log = open(os.path.join(base, "replicas.log"), "w+")
+    procs = []
+
+    def start_both():
+        t0 = time.perf_counter()
+        # the default kernel-library directory: two replicas share its build
+        new = [spawn_service(root, p, log, "--replica-id", rid, "--advertise-url",
+                             f"http://127.0.0.1:{p}", "--replica-ttl", str(REPLICA_TTL))
+               for p, rid in zip(ports, rids)]
+        procs.extend(new)
+        for u in urls:
+            ServiceClient(u).wait_ready(timeout=300)
+        return new, time.perf_counter() - t0
+
+    try:
+        # (1) the ring splits 4 studies over two replicas at create time
+        first, start_s = start_both()
+        client = ServiceClient(replicas=urls, deadline=120.0, retry_timeout=120.0,
+                               backoff_base=0.02, backoff_max=0.2, retry_seed=7)
+        sids = spread_names(client.ring, urls, 2, prefix="fo")
+        seeds = {sid: 20 + i for i, sid in enumerate(sids)}
+        for sid in sids:
+            client.create_study(sid, space, seed=seeds[sid], algo="tpe", algo_params=kw)
+        owner = {sid: rid for u, rid in zip(urls, rids)
+                 for sid in ServiceClient(u).replicas()["owned_studies"]}
+        assert sorted(owner) == sorted(sids), owner
+        assert [sum(o == rid for o in owner.values()) for rid in rids] == [2, 2], owner
+        # (2) SIGTERM both: each releases its leases (fence kept) and withdraws
+        rcs = [stop_process(p) for p in first]
+        leases = StudyLeaseStore(root)
+        released = [leases.read(sid) for sid in sids]
+        assert rcs == [0, 0] and all(
+            r["owner"] is None and r["fence"] >= 1 for r in released), (rcs, released)
+        assert ReplicaDirectory(root).replicas() == []
+        # (3) the studies' durable directories get the history offline; the
+        # leases go back to their owners for the restart
+        history = N_HISTORY
+        reg = StudyRegistry(root, device="cuda")
+        for sid in sids:
+            study = reg.get(sid)
+            assert study.trials.new_trial_ids(history) == list(range(history))
+            prefilled_trials(T, history, seed=seeds[sid], trials=study.trials)
+        del reg, study
+        for sid in sids:
+            assert leases.claim(sid, owner[sid], ttl=600.0) is not None
+        procs.clear()  # both exited
+        _, restart_s = start_both()
+        emit("replica_failover", part="setup", n_history=history,
+             history_choice="N_HISTORY", studies=sids, owners=owner,
+             replica_ttl_s=REPLICA_TTL, first_start_to_ready_s=start_s,
+             restart_to_ready_s=restart_s, graceful_release=True)
+        # (4) 4 concurrent rounds, then kill -9 of r1
+        served = {sid: [] for sid in sids}
+        pre, wall_pre = drive_replica_clients(T, client, sids, REPLICA_ROUNDS, served)
+        victims = sorted(s for s in sids if owner[s] == "r1")
+        survivors = sorted(s for s in sids if owner[s] == "r2")
+        r2 = ServiceClient(urls[1])
+        expiry = {sid: leases.read(sid)["expires_at"] for sid in victims}
+        st0, m0 = r2.service_status(), r2.metrics()
+        t_kill_wall, t_kill = time.time(), time.perf_counter()
+        procs[0].send_signal(signal.SIGKILL)
+        procs[0].wait(timeout=60)
+        # (5) the first suggest of every study after the kill, one at a time
+        # (the migrated ones first): none is a compile event on r2
+        first_post, wall_first = drive_replica_clients(
+            T, client, victims + survivors, 1, served, concurrent=False)
+        st1 = r2.service_status()
+        # (6) the remaining rounds, 4 clients at once
+        _, wall_post = drive_replica_clients(T, client, sids, REPLICA_ROUNDS - 1, served)
+        st2, m2, doc = r2.service_status(), r2.metrics(), r2.replicas()
+        # SL608 needs an SLO window of 30 s on r2
+        while st2["uptime_s"] < 32.0:
+            time.sleep(0.5)
+            st2 = r2.service_status()
+        alerts = r2.alerts()
+        statuses = {sid: client.study_status(sid) for sid in sids}
+        rc_term = stop_process(procs[1])
+        after_term = [leases.read(sid) for sid in sids]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+        log.close()
+    # the twins: each study alone, on the card, at the same seed and history
+    twins = {}
+    for sid in sids:
+        trials = prefilled_trials(T, history, seed=seeds[sid])
+        T.fmin(bench_objective, space, algo=partial(T.tpe.suggest, **kw),
+               max_evals=history + 2 * REPLICA_ROUNDS, trials=trials,
+               rstate=np.random.default_rng(seeds[sid]), show_progressbar=False,
+               max_speculation=0)
+        twins[sid] = [{k: v[0] for k, v in d["misc"]["vals"].items() if v}
+                      for d in trials.trials[history:]]
+    takeovers = {r["study_id"]: r for r in doc["stats"]["recent_takeovers"]}
+    launches = {name: st2["kernel_launches"][name] - st0["kernel_launches"][name]
+                for name in st0["kernel_launches"]}
+    first_launches = (st1["kernel_launches"]["pair_score_batched"]
+                      - st0["kernel_launches"]["pair_score_batched"])
+    edges, c0 = suggest_hist(m0)
+    _, c2 = suggest_hist(m2)
+    window = [b - a for a, b in zip(c0, c2)]
+    for sid in victims:
+        rec = takeovers[sid]
+        emit("replica_failover", part="takeover", study=sid, from_owner=rec["from_owner"],
+             reason=rec["reason"], fence=rec["fence"], ok=rec["ok"],
+             fsck_clean=rec["fsck_clean"], prewarm=rec["prewarm"],
+             duration_s=rec["duration_s"], split_s=rec["split_s"],
+             kill_to_lease_expiry_s=expiry[sid] - t_kill_wall,
+             client_gap_s=first_post[sid]["first"] - pre[sid]["last"],
+             kill_to_first_suggest_s=first_post[sid]["first"] - t_kill,
+             first_suggest_call_s=first_post[sid]["first_call_s"])
+    n_trials = 2 * REPLICA_ROUNDS
+    emit("replica_failover", part="serving", n_history=history,
+         wall_ms_per_trial_before=wall_pre * 1e3 / (len(sids) * REPLICA_ROUNDS),
+         wall_ms_per_trial_after=(wall_first + wall_post) * 1e3 / (len(sids) * REPLICA_ROUNDS),
+         wall_ms_per_trial_after_concurrent=wall_post * 1e3 / (len(sids) * (REPLICA_ROUNDS - 1)),
+         r2_suggest_p50_ms_after=1e3 * quantile_from_counts(edges, window, 0.5),
+         r2_suggest_p99_ms_after=1e3 * quantile_from_counts(edges, window, 0.99),
+         r2_kernel_launches_after=launches, r2_launches_first_suggests=first_launches,
+         r2_prewarm_launches=first_launches - 2 * len(sids),
+         r2_cold_first_suggests=(st1["stats"]["n_cold_suggests"]
+                                 - st0["stats"]["n_cold_suggests"]),
+         r2_cold_after=st2["stats"]["n_cold_suggests"] - st0["stats"]["n_cold_suggests"],
+         r2_owned=doc["owned_studies"],
+         renew_lost=metric_value(m2, "hyperopt_replica_lease_renew_lost_total"),
+         stale_writes_dropped=metric_value(m2, "hyperopt_replica_stale_writes_dropped_total"),
+         sl608=[r["status"] for r in alerts["rules"] if r["rule"] == "SL608"],
+         trials_equal_twin={sid: served[sid] == twins[sid] for sid in sids},
+         sigterm_exit=rc_term)
+    # the checks
+    assert sorted(doc["owned_studies"]) == sorted(sids), doc["owned_studies"]
+    assert sorted(takeovers) == victims, takeovers
+    for sid in victims:
+        rec = takeovers[sid]
+        assert rec["ok"] and rec["fsck_clean"] and sum(rec["prewarm"].values()) > 0, rec
+        assert rec["duration_s"] < 30.0, rec  # the reference's MTTR bound
+    assert st1["stats"]["n_cold_suggests"] == st0["stats"]["n_cold_suggests"], (st0, st1)
+    # r2 served the 4 first suggests on the card (2 launches each), after
+    # whatever its takeovers' pre-warm launched
+    assert first_launches >= 2 * len(sids), first_launches
+    for sid in sids:
+        st = statuses[sid]
+        assert st["n_trials"] == st["n_completed"] == history + n_trials, st
+        assert served[sid] == twins[sid], (sid, served[sid], twins[sid])
+    assert metric_value(m2, "hyperopt_replica_lease_renew_lost_total") == 0
+    assert metric_value(m2, "hyperopt_replica_stale_writes_dropped_total") == 0
+    assert [r["status"] for r in alerts["rules"] if r["rule"] == "SL608"] == ["ok"], alerts
+    assert rc_term == 0 and all(r["owner"] is None for r in after_term), (rc_term, after_term)
+    fsck = subprocess.run([sys.executable, "-m", "hyperopt_tpu_torch.service", "fsck", root,
+                           "--json"], capture_output=True, text=True, timeout=300, cwd=repo,
+                          env=dict(os.environ, PYTHONPATH=repo))
+    report = json.loads(fsck.stdout) if fsck.returncode in (0, 1) else {}
+    n_leases = sum(n.endswith(".lease") for n in os.listdir(leases.leases_dir))
+    emit("replica_failover", part="fsck", exit=fsck.returncode, clean=report.get("clean"),
+         n_queues=report.get("n_queues"), n_docs=report.get("n_docs"),
+         replica_plane_leases_checked=n_leases)
+    assert fsck.returncode == 0 and report["clean"] and n_leases == len(sids), fsck.stdout
+    emit("replica_failover", part="seconds", seconds=time.perf_counter() - t_phase)
+    return launches
+
+
 def device_ms_per_launch(fn, names, iters=50):
     """Device time per call of ``fn`` of the kernels whose names hold one of
     ``names``, by ``torch.profiler``: the kernels alone, without the
@@ -2617,6 +2904,7 @@ def main():
     phase_device_recovery(T, counters)
     phase_profiler(T, counters, trials)
     service_launches = phase_service(T, counters)
+    replica_launches = phase_replica_failover(T)
     launches = {**launches, "fused_suggest": fused_runs["0"][0]["fused_suggest"],
                 "fused_suggest_draw": fused_runs["1"][0]["fused_suggest"],
                 "pair_score_single": single["pair_score_single"]}
@@ -2624,6 +2912,8 @@ def main():
     for r in kernels:
         # the launches of the service phase's concurrent run, its own path
         r["launches_service"] = service_launches[r["name"]]
+        # the surviving replica's launches after the kill (its own process)
+        r["launches_replica_failover"] = replica_launches[r["name"]]
     assert "jax" not in sys.modules and not any(
         m == "hyperopt_tpu" or m.startswith("hyperopt_tpu.") for m in sys.modules)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -43,9 +43,12 @@ its persistent XLA program cache settings.
 
 from __future__ import annotations
 
+import contextlib
+import fcntl
 import hashlib
 import json
 import logging
+import os
 import threading
 import time
 
@@ -236,6 +239,22 @@ def _static_value(v):
 # ---------------------------------------------------------------------
 
 
+def _fold_records(by_key, order, records) -> int:
+    """Fold ledger file records, in file order, into a ``by_key``/``order``
+    view (latest per program identity): a later record of a key replaces
+    an earlier one.  Returns the highest ``seq`` folded in."""
+    seq = 0
+    for rec in records:
+        key = rec.get("replay_key") or replay_key(
+            rec.get("sig") or [], rec.get("shapes") or []
+        )
+        if key not in by_key:
+            order.append(key)
+        by_key[key] = rec
+        seq = max(seq, int(rec.get("seq", 0)))
+    return seq
+
+
 class CompileLedger:
     """Bounded, crash-consistent compile ledger for one service root.
 
@@ -251,6 +270,14 @@ class CompileLedger:
     ``path=None`` keeps the ledger in memory only (an ephemeral server
     still gets warm-key accounting and /v1/warmup, just no restart
     memory).
+
+    Several replicas share one root's ledger: every append and every
+    compaction holds ``flock(2)`` on ``<ledger>.lock``, so the file's
+    order is the order the records were written in, whichever process
+    wrote them.  A record's ``seq`` is numbered by its own process (two
+    processes' seqs interleave), so a load folds in file order, and a
+    compaction first folds in the file, so no replica's rewrite drops a
+    sibling's record or keeps an older one of the same key.
     """
 
     # lock-order: _lock
@@ -266,28 +293,37 @@ class CompileLedger:
         if self.path:
             self._load()
 
-    def _load(self):
+    def _read_file(self):
+        """(records in file order, n_torn) of the file; empty when absent."""
         try:
             with open(self.path, "rb") as f:
                 raw = f.read()
         except FileNotFoundError:
-            return
-        records, self.n_torn_lines = tracing.parse_trace_log(raw)
+            return [], 0
+        return tracing.parse_trace_log(raw)
+
+    @contextlib.contextmanager
+    def _file_lock(self):
+        """flock(2) on ``<ledger>.lock``: one appender or compactor at a
+        time across the replicas sharing the root."""
+        fd = os.open(self.path + ".lock", os.O_CREAT | os.O_RDWR, 0o644)
+        try:
+            fcntl.flock(fd, fcntl.LOCK_EX)
+            yield
+        finally:
+            os.close(fd)  # releases the flock
+
+    def _load(self):
+        records, self.n_torn_lines = self._read_file()
         if self.n_torn_lines:
             logger.warning(
                 "compile ledger %s: %d torn line(s) skipped (crash-"
                 "consistent resync)", self.path, self.n_torn_lines,
             )
-        records.sort(key=lambda r: int(r.get("seq", 0)))
         with self._lock:
-            for rec in records:
-                key = rec.get("replay_key") or replay_key(
-                    rec.get("sig") or [], rec.get("shapes") or []
-                )
-                if key not in self._by_key:
-                    self._order.append(key)
-                self._by_key[key] = rec
-                self._seq = max(self._seq, int(rec.get("seq", 0)))
+            self._seq = max(self._seq, _fold_records(
+                self._by_key, self._order, records
+            ))
 
     def record_compile(self, sig, shapes, duration_s, cache_hit=False,
                        fp=None, n_requests=None, source="dispatch"):
@@ -325,24 +361,43 @@ class CompileLedger:
                 # one crash-atomic O_APPEND write + fsync — a torn
                 # tail garbles at most this record, resync'd on load.
                 # The ledger lock deliberately serializes journal I/O:
-                # appends must land in seq order and must not
-                # interleave with the compaction rewrite below.
-                journal_io.append_record(  # lint: disable=RL305
-                    self.path, rec, fsync_kind="ledger"
-                )
-                self._appends_since_compact += 1
-                if self._appends_since_compact > (
-                    COMPACT_APPEND_FACTOR * max(len(self._order), 1)
-                ):
-                    # compaction: rewrite with only the live (latest-
-                    # per-key) entries — atomic replace, crash-safe
-                    journal_io.compact_records(
-                        self.path,
-                        [self._by_key[k] for k in self._order],
-                        fsync_kind="ledger",
+                # appends must land in the order they were made and
+                # must not interleave with the compaction rewrite
+                # below; the file lock does the same across processes.
+                with self._file_lock():
+                    journal_io.append_record(  # lint: disable=RL305
+                        self.path, rec, fsync_kind="ledger"
                     )
-                    self._appends_since_compact = 0
+                    self._appends_since_compact += 1
+                    if self._appends_since_compact > (
+                        COMPACT_APPEND_FACTOR * max(len(self._order), 1)
+                    ):
+                        # compaction: rewrite with only the live
+                        # (latest-per-key) entries, siblings' included
+                        # — atomic replace, crash-safe
+                        self._seq = max(self._seq, _fold_records(
+                            self._by_key, self._order, self._read_file()[0]
+                        ))
+                        journal_io.compact_records(
+                            self.path,
+                            [self._by_key[k] for k in self._order],
+                            fsync_kind="ledger",
+                        )
+                        self._appends_since_compact = 0
         return rec
+
+    def refresh(self):
+        """Fold in the records sibling replicas appended to the shared
+        file since this process loaded it (a takeover replays them)."""
+        if not self.path:
+            return
+        # under both locks: every record this process holds is then in
+        # the file before the read, so the file's last record of a key
+        # is the newest one
+        with self._lock, self._file_lock():
+            self._seq = max(self._seq, _fold_records(
+                self._by_key, self._order, self._read_file()[0]
+            ))
 
     # -- reads ---------------------------------------------------------
     def entries(self, current_fingerprint=None):

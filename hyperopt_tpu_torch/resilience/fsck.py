@@ -1,10 +1,11 @@
-"""fsck for a FileTrials queue directory: detect and repair crash damage.
+"""fsck for the durable trial store: detect and repair crash damage.
 
-Reference parity: the queue half of ``hyperopt_tpu/resilience/fsck.py``
-(``:89-841``, ``:1063-1097``); a queue either package wrote is checked
-and repaired the same way by either.  ``kill -9``, torn disk writes and
-writers that died mid-operation leave a queue in states the happy path
-never produces; this is the offline checker and repairer::
+Reference parity: ``hyperopt_tpu/resilience/fsck.py``; a queue or a
+service root (its replica plane included) either package wrote is
+checked and repaired the same way by either.  ``kill -9``, torn disk
+writes and writers that died mid-operation leave a queue directory (or
+a whole optimization-service root) in states the happy path never
+produces; this is the offline checker and repairer::
 
     python -m hyperopt_tpu_torch.resilience.fsck <queue>            # dry run
     python -m hyperopt_tpu_torch.resilience.fsck <queue> --repair   # fix it
@@ -44,15 +45,28 @@ FS412     orphaned segment file (referenced by neither the manifest's
           records it alone holds, then delete.
 ========  ==============================================================
 
+FS409     replica-plane damage under ``<root>/replicas/``: an orphaned
+          study-ownership lease (no study directory AND not live — a live
+          one is the mid-create window), an expired lease still naming a
+          dead owner (past one extra TTL of grace, so a briefly-stalled
+          live holder is never fenced by a sibling's startup fsck), a torn
+          lease or registry record, a stuck ``.claimlock`` (past an age
+          grace no live claimant can reach), or a garbled fence counter.
+          Repair: delete orphans and stuck locks, reclaim expired leases
+          (owner cleared, **fence preserved**), quarantine torn leases,
+          delete torn records, and rewrite a garbled fence counter past
+          the highest evidenced token.
+
 FS405 and FS407 read the optimization service's seed-cursor attachment
 and response journal, which live in the queue directory (their names and
 format are the reference's).  :func:`fsck_service_root` checks every
-study queue under a service root's ``studies/``.  The replica plane's
-FS409 (``replicas/``) is not ported: a root that has one raises
-(ROADMAP.md, queue A item 5).
+study queue under a service root's ``studies/`` and the replica plane.
 
-Offline by design: run it on a queue no process is writing.  Repairs are
-individually crash-safe (atomic rename/replace or unlink).
+Offline by design: run it on a queue no process is writing.  The FS409
+rules are the one exception forced to tolerate liveness: every replica's
+STARTUP fsck repairs the shared root while its siblings serve, so those
+rules gate on lease liveness and age before touching anything.  Repairs
+are individually crash-safe (atomic rename/replace or unlink).
 """
 
 from __future__ import annotations
@@ -61,6 +75,7 @@ import glob
 import json
 import os
 import sys
+import time
 import zlib as _zlib
 from dataclasses import dataclass, field
 
@@ -91,6 +106,12 @@ _LOCKABLE_STATES = (JOB_STATE_RUNNING,)
 # (the reference's names, ``hyperopt_tpu/service/core.py:87-91``)
 SEED_CURSOR_ATTACHMENT = "ServiceSeedCursor"
 RESPONSE_JOURNAL_ATTACHMENT = "ServiceResponseJournal.jsonl"
+
+# a .claimlock younger than this may be a live peer inside the
+# O_CREAT|O_EXCL critical section (the claim path itself steals locks
+# older than the store TTL; fsck can't know the TTL, so it uses a
+# ceiling no live claimant can reach)
+FS409_CLAIMLOCK_GRACE_S = 60.0
 
 
 @dataclass
@@ -768,13 +789,212 @@ def fsck_queue(qdir, repair=False, report: FsckReport = None) -> FsckReport:
     return report
 
 
+def _fsck_replica_plane(root, repair, report: FsckReport):
+    """FS409: the replica plane under ``<root>/replicas/`` — ownership
+    leases, fence counters, claim locks, and registry records."""
+    leases_dir = os.path.join(root, "replicas", "leases")
+    registry_dir = os.path.join(root, "replicas", "registry")
+    studies_dir = os.path.join(root, "studies")
+    if not (os.path.isdir(leases_dir) or os.path.isdir(registry_dir)):
+        return
+    now = time.time()
+
+    def _has_study(study_id):
+        return os.path.isdir(os.path.join(studies_dir, study_id))
+
+    def _read_lease(study_id):
+        try:
+            with open(
+                os.path.join(leases_dir, f"{study_id}.lease"), "rb"
+            ) as f:
+                return _decode_doc(f.read())
+        except (OSError, DocCorrupt):
+            return None
+
+    def _lease_live(lease):
+        if not lease or not lease.get("owner"):
+            return False
+        try:
+            return float(lease.get("expires_at", 0.0)) > now
+        except (TypeError, ValueError):
+            return False
+
+    def _remove(path, detail, action="deleted"):
+        fixed = False
+        if repair:
+            try:
+                os.unlink(path)
+                fixed = True
+            except OSError:
+                pass
+        report.add("FS409", path, detail, repaired=fixed,
+                   action=action if fixed else "")
+
+    for path in sorted(glob.glob(os.path.join(leases_dir, "*.lease"))):
+        study_id = os.path.basename(path)[: -len(".lease")]
+        try:
+            with open(path, "rb") as f:
+                raw = f.read()
+        except OSError:
+            continue
+        try:
+            lease = _decode_doc(raw)
+        except DocCorrupt as e:
+            # torn lease: quarantine — safe because the FENCE COUNTER,
+            # not the lease file, carries token monotonicity
+            fixed = False
+            action = ""
+            if repair:
+                try:
+                    dest = quarantine_path(path)
+                    os.replace(path, dest)
+                    fixed = True
+                    action = f"quarantined to {os.path.basename(dest)}"
+                except OSError:
+                    pass
+            report.add(
+                "FS409", path, f"torn replica-ownership lease ({e})",
+                repaired=fixed, action=action,
+            )
+            continue
+        if not _has_study(study_id):
+            if _lease_live(lease):
+                # a LIVE lease with no study dir is the mid-create
+                # window (ownership-before-side-effects claims the
+                # lease before the directory exists) — deleting it
+                # would steal a live creator's ownership and, via the
+                # fence file, reset token monotonicity.  Not damage.
+                continue
+            _remove(
+                path,
+                "orphaned replica-ownership lease (no study directory)",
+            )
+            continue
+        owner = lease.get("owner")
+        try:
+            expires_at = float(lease.get("expires_at", 0.0))
+            expired = expires_at <= now
+        except (TypeError, ValueError):
+            expires_at = 0.0
+            expired = True
+        try:
+            grace = max(
+                expires_at - float(lease.get("granted_at", expires_at)),
+                0.0,
+            )
+        except (TypeError, ValueError):
+            grace = 0.0
+        if owner and expired and now <= expires_at + grace:
+            # within one TTL of expiry the holder may be briefly
+            # stalled, not dead: verify() deliberately treats an
+            # expired-but-unreclaimed lease as still held, and claim()
+            # can already take over without fsck's help.  Clearing the
+            # owner here (e.g. a sibling replica's STARTUP fsck on the
+            # shared root) would spuriously fence a live holder.
+            continue
+        if owner and expired:
+            # expired residue of a dead replica: reclaim — owner
+            # cleared, fence PRESERVED (resetting it would let the
+            # dead owner's buffered writes pass a later verify)
+            fixed = False
+            action = ""
+            if repair:
+                lease = dict(lease)
+                lease["owner"] = None
+                lease["expires_at"] = 0.0
+                lease["reclaimed_by"] = "fsck"
+                try:
+                    _write_doc(path, lease)
+                    fixed = True
+                    action = (
+                        f"reclaimed (owner {owner!r} cleared, fence "
+                        f"{lease.get('fence')} preserved)"
+                    )
+                except OSError:
+                    pass
+            report.add(
+                "FS409", path,
+                f"expired replica-ownership lease still naming "
+                f"{owner!r}",
+                repaired=fixed, action=action,
+            )
+
+    # fence counters: garbled → rewrite past the highest evidenced
+    # token; orphaned (no study) → delete
+    for path in sorted(glob.glob(os.path.join(leases_dir, "*.fence"))):
+        study_id = os.path.basename(path)[: -len(".fence")]
+        if not _has_study(study_id):
+            if _lease_live(_read_lease(study_id)):
+                continue  # mid-create window (see the lease pass)
+            _remove(path, "orphaned fence counter (no study directory)")
+            continue
+        try:
+            with open(path) as f:
+                int(f.read().strip() or 0)
+            continue  # parseable: fine at any value
+        except ValueError:
+            pass
+        except OSError:
+            continue
+        evidenced = 0
+        lease_file = os.path.join(leases_dir, f"{study_id}.lease")
+        try:
+            with open(lease_file, "rb") as f:
+                evidenced = int(_decode_doc(f.read()).get("fence", 0))
+        except (OSError, DocCorrupt, TypeError, ValueError):
+            pass
+        fixed = False
+        if repair:
+            try:
+                # durability: exempt(offline repair: fsck runs single-writer against a stopped store)
+                _atomic_write(path, str(evidenced + 1).encode())
+                fixed = True
+            except OSError:
+                pass
+        report.add(
+            "FS409", path,
+            "garbled fence counter (token monotonicity at risk)",
+            repaired=fixed,
+            action=(f"rewrote as {evidenced + 1}" if fixed else ""),
+        )
+
+    # stuck claim locks: a FRESH lock is a peer inside the O_CREAT |
+    # O_EXCL critical section (this fsck may be a sibling replica's
+    # startup pass against a live shared root) — only a lock old
+    # enough that no live claimant can hold it is damage.  The store
+    # itself steals locks older than its TTL; this grace is the
+    # conservative ceiling for roots fsck can't know the TTL of.
+    for path in sorted(glob.glob(os.path.join(leases_dir, "*.claimlock"))):
+        try:
+            age = now - os.path.getmtime(path)
+        except OSError:
+            continue
+        if age <= FS409_CLAIMLOCK_GRACE_S:
+            continue
+        _remove(
+            path,
+            "stuck lease claim lock (claimant killed mid-claim)",
+        )
+
+    # registry records: torn → delete (regenerated by the replica's
+    # next heartbeat; advisory data, never a safety input)
+    for path in sorted(glob.glob(os.path.join(registry_dir, "*.json"))):
+        try:
+            with open(path, "rb") as f:
+                raw = f.read()
+        except OSError:
+            continue
+        try:
+            _decode_doc(raw)
+        except DocCorrupt as e:
+            _remove(path, f"torn replica-registry record ({e})")
+
+
 def fsck_service_root(root, repair=False) -> FsckReport:
     """fsck every study queue under an optimization-service root
-    (``<root>/studies/<study_id>/``).  A root with a replica plane
-    (``replicas/``) raises: FS409 is not ported (ROADMAP.md, queue A
-    item 5)."""
+    (``<root>/studies/<study_id>/``), plus the replica plane (FS409)
+    when one exists."""
     root = os.path.abspath(root)
-    _refuse_replica_plane(root)
     report = FsckReport(root=root, repair=repair)
     studies_dir = os.path.join(root, "studies")
     if os.path.isdir(studies_dir):
@@ -782,25 +1002,18 @@ def fsck_service_root(root, repair=False) -> FsckReport:
             qdir = os.path.join(studies_dir, name)
             if os.path.isdir(qdir):
                 fsck_queue(qdir, repair=repair, report=report)
+    _fsck_replica_plane(root, repair, report)
     return report
 
 
-def _refuse_replica_plane(root):
-    if os.path.isdir(os.path.join(root, "replicas")):
-        raise NotImplementedError(
-            f"{root} has a replica plane (replicas/): its checks (FS409) "
-            "are not ported to hyperopt_tpu_torch yet (ROADMAP.md: queue "
-            "A item 5, the rest of service/replicas.py)"
-        )
-
-
 def fsck_path(path, repair=False) -> FsckReport:
-    """fsck a service root (has ``studies/``) or a single queue dir (has
-    ``trials/`` or ``segments/``) — detected by layout.  A root with
-    ``replicas/`` raises (see :func:`fsck_service_root`)."""
+    """fsck a service root (has ``studies/`` or ``replicas/``) or a
+    single queue dir (has ``trials/`` or ``segments/``) — detected by
+    layout."""
     path = os.path.abspath(path)
-    _refuse_replica_plane(path)
-    if os.path.isdir(os.path.join(path, "studies")):
+    if os.path.isdir(os.path.join(path, "studies")) or os.path.isdir(
+        os.path.join(path, "replicas")
+    ):
         return fsck_service_root(path, repair=repair)
     return fsck_queue(path, repair=repair)
 

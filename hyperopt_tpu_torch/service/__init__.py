@@ -6,8 +6,9 @@ concurrent ``suggest`` requests are coalesced within a short window and
 launched back to back as ONE batched dispatch with one readback
 (``tpe_device.multi_study_suggest_async``), with per-study durable
 state (FileTrials), admission-control backpressure (HTTP 429), and
-graceful drain.  Reference parity: ``hyperopt_tpu/service`` for one
-replica (the replica plane waits: ROADMAP.md, queue A item 5).
+graceful drain.  Several such processes may share one ``--root`` as
+replicas (``--replica-id``), each serving the studies it leases.
+Reference parity: ``hyperopt_tpu/service``.
 
 Quick start::
 
@@ -46,7 +47,14 @@ from .core import (
     decode_space,
     encode_space,
 )
-from .replicas import HashRing, OwnershipLost, read_discovery
+from .replicas import (
+    HashRing,
+    OwnershipLost,
+    ReplicaDirectory,
+    ReplicaSet,
+    StudyLeaseStore,
+    read_discovery,
+)
 from .server import ServiceServer, free_port
 
 __all__ = [
@@ -56,7 +64,9 @@ __all__ = [
     "NotOwner",
     "OptimizationService",
     "OwnershipLost",
+    "ReplicaDirectory",
     "ReplicaRedirect",
+    "ReplicaSet",
     "ResponseJournal",
     "ServiceClient",
     "ServiceClientError",
@@ -65,6 +75,7 @@ __all__ = [
     "ServiceTransportError",
     "Study",
     "StudyExists",
+    "StudyLeaseStore",
     "StudyNotFound",
     "StudyRegistry",
     "StudyStopped",

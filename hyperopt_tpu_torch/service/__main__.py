@@ -17,9 +17,12 @@ Subcommand::
 
 checks (dry-run by default) a service root or single queue directory
 for crash damage; see ``hyperopt_tpu_torch.resilience.fsck`` for the
-rule catalog.  Reference parity: ``hyperopt_tpu/service/__main__.py``;
-the replica flags raise until the replica plane is ported (ROADMAP.md,
-queue A item 5).
+rule catalog.  Reference parity: ``hyperopt_tpu/service/__main__.py``.
+
+Multi-replica mode: N servers started with ``--replica-id`` on one
+``--root`` split the studies between them; SIGTERM drains, releases
+every study lease (its fence kept) and withdraws the replica's
+directory record, so a sibling adopts its studies at once.
 """
 
 from __future__ import annotations
@@ -159,13 +162,30 @@ def make_parser():
     )
     p.add_argument(
         "--replica-id", default=None, dest="replica_id",
-        help="multi-replica mode: not ported yet (ROADMAP.md, queue A "
-             "item 5); the server refuses to start with it",
+        help="multi-replica mode: this server's stable identity.  N "
+             "servers sharing one --root split the studies between "
+             "them via fencing-token ownership leases; a dead "
+             "replica's studies migrate to the survivors after an "
+             "fsck-clean, ledger-pre-warmed takeover.  Requires --root",
+    )
+    p.add_argument(
+        "--advertise-url", default=None, dest="advertise_url",
+        help="URL other replicas' clients are redirected to for "
+             "studies this replica owns (default http://<host>:<port> "
+             "when --port is explicit; required with --port 0)",
+    )
+    p.add_argument(
+        "--replica-ttl", type=float, default=None, dest="replica_ttl",
+        help="study-ownership lease TTL in seconds (default 10); a "
+             "replica silent this long has its studies reclaimed",
     )
     p.add_argument(
         "--mirror-src-root", default=None, dest="mirror_src_root",
-        help="multi-replica mode: not ported yet (ROADMAP.md, queue A "
-             "item 5); the server refuses to start with it",
+        help="no-shared-root replication: pull the peer root's sealed "
+             "trial-log segments into this replica's --root on every "
+             "reaper tick (fence-checked cut points), so a takeover "
+             "serves from an already-local, CRC-verified copy.  "
+             "Requires --replica-id",
     )
     p.add_argument(
         "--self-tune", action="store_true", dest="self_tune",
@@ -205,7 +225,7 @@ def make_parser():
     return p
 
 
-def _build_service(options, tracer, cache_dir):
+def _build_service(options, tracer, cache_dir, advertise_url):
     return OptimizationService(
         root=options.root,
         batch_window=options.batch_window,
@@ -221,6 +241,8 @@ def _build_service(options, tracer, cache_dir):
         compile_ledger_path=options.compile_ledger,
         mesh=options.mesh,
         replica_id=options.replica_id,
+        advertise_url=advertise_url,
+        replica_ttl=options.replica_ttl,
         mirror_src_root=options.mirror_src_root,
         control_enabled=options.self_tune,
         control_window_s=options.control_window,
@@ -282,10 +304,38 @@ def main(argv=None):
     cache_dir = options.compile_cache_dir
     if cache_dir and cache_dir.lower() == "none":
         cache_dir = None
-    # a replica flag, or a mesh over several devices, raises
-    # NotImplementedError; no card without --device cpu raises too
-    service = _build_service(options, tracer, cache_dir)
+    advertise_url = options.advertise_url
+    if options.replica_id is not None:
+        if not options.root:
+            logger.error("--replica-id requires --root (a shared store)")
+            return 2
+        if advertise_url is None:
+            if options.port == 0:
+                logger.error(
+                    "--replica-id with --port 0 needs --advertise-url "
+                    "(the redirect target cannot be predicted)"
+                )
+                return 2
+            advertise_url = f"http://{options.host}:{options.port}"
+    if options.mirror_src_root and options.replica_id is None:
+        logger.error("--mirror-src-root requires --replica-id")
+        return 2
+    # a mesh over several devices raises NotImplementedError; no card
+    # without --device cpu raises too
+    try:
+        service = _build_service(
+            options, tracer, cache_dir, advertise_url
+        )
+    except ValueError as e:
+        # e.g. a compile cache dir another live replica advertises
+        logger.error("%s", e)
+        return 2
     logger.info("serving on %s", service.device)
+    if service.replica_set is not None:
+        logger.info(
+            "replica mode: id=%s advertise=%s ttl=%.1fs",
+            options.replica_id, advertise_url, service.replica_set.ttl,
+        )
     if service.controller is not None:
         logger.info(
             "self-tune controller ON: window=%.1fs interval=%.1fs "

@@ -50,9 +50,15 @@ Guarantees:
 The study directory's docs, config attachment, seed cursor and response
 journal are the reference's formats, readable by either package; the
 pickled space is not (:func:`decode_space` refuses a blob that names
-the JAX package's classes).  Not ported (ROADMAP.md, queue A): the
-replica plane (``replica_id=``, ``mirror_src_root=``; item 5) and
-meshes other than the single-device dispatch (item 6).
+the JAX package's classes).
+
+Multi-replica mode (``replica_id=``, :mod:`.replicas`): N server
+processes share one root — on one card, each its own CUDA context —
+each serving the studies whose fencing-token lease it holds; a dead
+replica's studies are adopted by a survivor (claim → fsck-clean →
+recover → ledger pre-warm → serve), the pre-warm queued on the
+adopter's scheduler thread.  Not ported (ROADMAP.md, queue A item 6):
+meshes other than the single-device dispatch.
 """
 
 from __future__ import annotations
@@ -89,7 +95,7 @@ from ..observability import (
     ServiceStats,
 )
 from ..utils import coarse_utcnow
-from .replicas import OwnershipLost, not_ported
+from .replicas import OwnershipLost
 
 logger = logging.getLogger(__name__)
 
@@ -116,6 +122,9 @@ STARTUP_WAIT_S = 60.0
 # (top-N by last search activity) — the cardinality guard that keeps a
 # million-study fleet from blowing up the Prometheus exposition
 DEFAULT_METRICS_MAX_STUDIES = 50
+# the longest a takeover waits for its pre-warm, a task queued on the
+# adopter's scheduler thread behind at most the batch in flight
+TAKEOVER_PREWARM_WAIT_S = 300.0
 
 _ALGOS = ("tpe", "rand", "anneal")
 
@@ -582,9 +591,10 @@ class Study:
         )
         self.domain = Domain(_null_objective, space)
         self.trials = trials if trials is not None else Trials()
-        # multi-replica mode's fencing-token credential; the replica
-        # plane is not ported, so it stays None and every ownership
-        # check costs one attribute read
+        # multi-replica mode: the serving replica's fencing-token
+        # credential (service.replicas.OwnershipHandle).  None in the
+        # single-process shape — every ownership check then costs one
+        # attribute read
         self.ownership = None
         self.lock = threading.Lock()
         self.rstate = np.random.default_rng(self.seed)
@@ -992,10 +1002,15 @@ class StudyRegistry:
 
     # lock-order: _create_lock < _studies_lock
     def __init__(self, root=None, max_studies=DEFAULT_MAX_STUDIES,
-                 device=None):
+                 device=None, replica_set=None):
         self.root = os.path.abspath(root) if root else None
         self.max_studies = int(max_studies)
         self.device = device  # the service's device, bound into studies
+        # multi-replica mode: recovery and create claim per-study
+        # ownership leases through this ReplicaSet; a study another
+        # live replica holds is skipped at recovery and refused (307)
+        # at create.  None keeps the single-process behavior exactly.
+        self.replica_set = replica_set
         self._studies_lock = threading.Lock()
         # serializes whole create() calls: the capacity/exists check,
         # the on-disk side effects (study dir + config attachment), and
@@ -1025,8 +1040,11 @@ class StudyRegistry:
     def load_study(self, study_id) -> Study:
         """Rebuild one study from its on-disk queue directory: config
         attachment → Study, journal replay, seed-cursor re-verify.  The
-        exactly-once recovery protocol of startup recovery.  Does NOT
-        register the study — the caller decides when it serves."""
+        exactly-once recovery protocol, shared by startup recovery and
+        replica takeover.  Does NOT register the study — the caller
+        decides when it starts serving (takeover pre-warms first).
+        Host work only: the first device work of a loaded study is its
+        pre-warm or its first suggest, both on the scheduler thread."""
         from ..parallel.file_trials import FileTrials
 
         qdir = self._study_dir(study_id)
@@ -1074,9 +1092,22 @@ class StudyRegistry:
         return study
 
     def install(self, study: Study):
-        """Register a recovered study for serving."""
+        """Register a recovered/adopted study for serving."""
         with self._studies_lock:
             self._studies[study.study_id] = study
+
+    def remove(self, study_id) -> bool:
+        """Evict a study from serving (relinquished ownership).  The
+        on-disk state is untouched — the new owner recovers it."""
+        with self._studies_lock:
+            return self._studies.pop(str(study_id), None) is not None
+
+    def _release(self, study_id, handle):
+        """Hand a claimed study back (fence preserved) and forget it."""
+        self.replica_set.leases.release(
+            study_id, self.replica_set.replica_id, handle.fence
+        )
+        self.replica_set.drop(study_id)
 
     def _recover(self):
         studies_dir = os.path.join(self.root, "studies")
@@ -1084,12 +1115,29 @@ class StudyRegistry:
             qdir = os.path.join(studies_dir, name)
             if not os.path.isdir(qdir):
                 continue
+            handle = None
+            if self.replica_set is not None:
+                # claim-before-recover: a study another live replica
+                # holds is ITS tenant, not ours (no failure — skip);
+                # claimable studies (unheld, expired, released) are
+                # taken over with a bumped fence
+                handle = self.replica_set.try_claim(name)
+                if handle is None:
+                    logger.info(
+                        "study %r is leased to another replica; skipping",
+                        name,
+                    )
+                    continue
             try:
                 study = self.load_study(name)
             except Exception:
                 logger.exception("could not recover study dir %s", qdir)
                 self.recovery_info["failed_studies"] += 1
+                if handle is not None:
+                    # release so a healthier replica may try
+                    self._release(name, handle)
                 continue
+            study.ownership = handle
             self.install(study)
             self.recovery_info["recovered_studies"] += 1
 
@@ -1149,18 +1197,37 @@ class StudyRegistry:
 
                 build_stop_fn(dict(early_stop))
             Domain(_null_objective, space)
-            trials = None
-            if self.root:
-                from ..parallel.file_trials import FileTrials
+            handle = None
+            if self.replica_set is not None:
+                # ownership-before-side-effects: claim the study's
+                # lease BEFORE the directory exists, so a raced create
+                # on two replicas has exactly one winner (the fence
+                # bump is the linearization point) and the loser
+                # redirects with no orphan dir
+                handle = self.replica_set.try_claim(study_id)
+                if handle is None:
+                    owner, url = self.replica_set.owner_hint(study_id)
+                    raise NotOwner(
+                        study_id, owner_id=owner, owner_url=url
+                    )
+            try:
+                trials = None
+                if self.root:
+                    from ..parallel.file_trials import FileTrials
 
-                trials = FileTrials(self._study_dir(study_id))
-            study = Study(
-                study_id, space, seed,
-                algo_name=algo_name, algo_params=algo_params,
-                trials=trials, early_stop=early_stop,
-                device=self.device,
-            )
-            study.persist_config()
+                    trials = FileTrials(self._study_dir(study_id))
+                study = Study(
+                    study_id, space, seed,
+                    algo_name=algo_name, algo_params=algo_params,
+                    trials=trials, early_stop=early_stop,
+                    device=self.device,
+                )
+                study.persist_config()
+            except Exception:
+                if handle is not None:
+                    self._release(study_id, handle)
+                raise
+            study.ownership = handle
             with self._studies_lock:
                 self._studies[study.study_id] = study
         return study
@@ -1902,18 +1969,66 @@ class OptimizationService:
                  slo_tick=None, compile_cache_dir=None, warmup=True,
                  cold_fallback=False, compile_ledger_path=None,
                  compile_plane=True, mesh=None, replica_id=None,
-                 mirror_src_root=None,
-                 control_enabled=False, control_window_s=30.0,
+                 advertise_url=None, replica_ttl=None,
+                 mirror_src_root=None, control_enabled=False, control_window_s=30.0,
                  control_interval_s=0.0, control_seed=0, device=None):
         from ..device import resolve_device
 
         # the device first: without a card (and without device="cpu")
         # the service raises before it touches the root
         self.device = resolve_device(device)
+        if replica_id is not None and not root:
+            raise ValueError(
+                "multi-replica mode (replica_id) requires a durable "
+                "--root shared between the replicas"
+            )
+        if mirror_src_root is not None and replica_id is None:
+            raise ValueError(
+                "mirror_src_root (pull-based segment replication) "
+                "requires multi-replica mode (replica_id)"
+            )
+        # multi-replica mode (--replica-id): N server processes share
+        # this root, each claiming per-study ownership through fencing-
+        # token heartbeat leases.  Built BEFORE the registry, so startup
+        # recovery claims exactly the studies no live replica holds; its
+        # threads start last.
+        self.replica_set = None
+        # lock-order: _adopt_lock is only ever held to look up/create a
+        # per-study adopt lock, never across blocking work; the
+        # PER-STUDY lock is what serializes a takeover, so adopting
+        # study A (fsck + recover + a bounded pre-warm wait) cannot
+        # stall a client whose request adopts study B
+        self._adopt_lock = threading.Lock()
+        self._adopt_locks = {}  # guarded-by: _adopt_lock  (study_id -> Lock)
         if replica_id is not None:
-            raise not_ported("OptimizationService(replica_id=...)")
-        if mirror_src_root is not None:
-            raise not_ported("OptimizationService(mirror_src_root=...)")
+            from .replicas import (
+                DEFAULT_REPLICA_LEASE_TTL,
+                ReplicaSet,
+                SegmentMirror,
+            )
+
+            self.replica_set = ReplicaSet(
+                root, replica_id, url=advertise_url,
+                ttl=(
+                    DEFAULT_REPLICA_LEASE_TTL if replica_ttl is None
+                    else float(replica_ttl)
+                ),
+            )
+            # advertised in the directory record, as the reference's
+            # record carries it; replicas may share the directory (its
+            # kernel libraries land by os.replace)
+            self.replica_set.compile_cache_dir = (
+                compile_cache_dir if compile_plane else None
+            )
+            if mirror_src_root is not None:
+                # no-shared-root replication: pull the peer's sealed
+                # segments into OUR root so an eventual takeover serves
+                # from a local, already-verified copy
+                self.replica_set.attach_mirror(
+                    SegmentMirror(
+                        mirror_src_root, root, ttl=self.replica_set.ttl
+                    )
+                )
         self.stats = ServiceStats()
         # mesh execution mode (--mesh auto|off): one card, one dispatch
         self.mesh_label = resolve_mesh(mesh)
@@ -2000,6 +2115,7 @@ class OptimizationService:
             self._run_startup_fsck(root)
         self.registry = StudyRegistry(
             root, max_studies=max_studies, device=self.device,
+            replica_set=self.replica_set,
         )
         if self.registry.recovery_info["failed_studies"]:
             self._recovery_ok = False
@@ -2095,8 +2211,10 @@ class OptimizationService:
             service_stats=self.stats,
             device_stats=self.device_stats,
             store_stats=self.store_stats,
-            # the replica plane is not ported: SL608 reports no_data
-            replica_stats=None,
+            replica_stats=(
+                self.replica_set.stats
+                if self.replica_set is not None else None
+            ),
             rules=slo_rules,
             # guardrails off means no breach-triggered dumps either —
             # a /v1/alerts poll on a --no-slo server must stay passive
@@ -2141,6 +2259,13 @@ class OptimizationService:
         self.suggest_timeout = float(suggest_timeout)
         self.started_at = time.time()
         self._closed = False
+        # replica plane goes live LAST: the heartbeat advertises this
+        # replica and the failure detector starts adopting dead
+        # replicas' studies only once the scheduler can serve them
+        if self.replica_set is not None:
+            self.replica_set.bind(
+                self._adopt_study, self._relinquish_study
+            ).start()
 
     def _install_compile_observer(self):
         from ..algos import tpe_device
@@ -2245,16 +2370,224 @@ class OptimizationService:
         finally:
             self._started.set()
 
+    # -- replica plane ---------------------------------------------------
+    def _adopt_study(self, study_id, reason) -> bool:
+        """Warm takeover of one study: **claim → fsck-clean → recover →
+        ledger pre-warm → serve**, in that order.
+
+        The fence bump at claim time makes the old owner's in-flight
+        writes stale (dropped at their own verify); the fsck repairs
+        whatever its crash tore; the journal replay + seed cursor make
+        the trajectory continue byte-identically; and a scoped
+        :class:`~hyperopt_tpu_torch.compile_ledger.WarmupDriver` replays
+        the shared compile ledger + a dry prepare of the study so its
+        FIRST post-failover suggest dispatches an already-warm program.
+        The pre-warm is a task on the scheduler thread (the one thread
+        that launches on the card); this thread — the reaper's or a
+        request handler's, never the scheduler's — waits for it under
+        :data:`TAKEOVER_PREWARM_WAIT_S`.  Returns True when the study is
+        serving here afterwards."""
+        rs = self.replica_set
+        if rs is None or self._closed:
+            return False
+        if threading.current_thread() is self.scheduler._thread:
+            # the pre-warm would queue behind this very task and the
+            # wait below could only time out
+            raise RuntimeError(
+                "a takeover cannot run on the scheduler thread"
+            )
+        with self._adopt_lock:
+            study_lock = self._adopt_locks.setdefault(
+                str(study_id), threading.Lock()
+            )
+        with study_lock:
+            try:
+                self.registry.get(study_id)
+                return True  # already serving (raced adoption)
+            except StudyNotFound:
+                pass
+            if not rs.adoption_should_attempt(study_id):
+                # a recent takeover of this study failed; don't re-run
+                # fsck + recovery + a fence bump for every request that
+                # misses the registry — wait out the backoff
+                return False
+            # the previous owner, for the takeover record (read before
+            # the claim overwrites it)
+            prior = rs.leases.read(study_id)
+            t0 = time.monotonic()
+            if rs.mirror is not None:
+                # no-shared-root mode: take a final fence-checked pull
+                # so the local copy includes every segment the dying
+                # owner sealed (the periodic reaper-tick pulls make
+                # this a near-noop)
+                try:
+                    rs.mirror.pull_study(study_id)
+                except Exception:
+                    logger.exception(
+                        "final pre-takeover pull failed for %r; "
+                        "serving from the last mirrored cut", study_id,
+                    )
+            handle = rs.try_claim(study_id)
+            if handle is None:
+                return False  # a live owner beat us to it
+            record = {
+                "study_id": str(study_id),
+                "reason": str(reason),
+                "from_owner": (prior or {}).get("owner"),
+                "fence": handle.fence,
+                "fsck_clean": None,
+                "prewarm": None,
+                "ok": False,
+                "duration_s": None,
+                # seconds of each stage, at the takeover.* spans'
+                # boundaries (readable with tracing off)
+                "split_s": {},
+            }
+            split = record["split_s"]
+            with self._traced_request(
+                "replica.takeover", study=str(study_id),
+                failover=True, reason=str(reason),
+            ) as (_trace, root):
+                try:
+                    from ..resilience.fsck import fsck_queue
+
+                    t = time.monotonic()
+                    with tracing.span("takeover.fsck"):
+                        fsck = fsck_queue(
+                            self.registry._study_dir(study_id),
+                            repair=True,
+                        )
+                    split["fsck"] = round(time.monotonic() - t, 4)
+                    record["fsck_clean"] = fsck.clean
+                    t = time.monotonic()
+                    with tracing.span("takeover.recover"):
+                        study = self.registry.load_study(study_id)
+                    split["recover"] = round(time.monotonic() - t, 4)
+                    # pre-warm BEFORE cutover: ledger records + a dry
+                    # prepare of this study, replayed through the real
+                    # dispatch path on the scheduler thread (compile
+                    # events tagged background — never request-path cold)
+                    if self.compile_plane:
+                        from .. import compile_ledger as ledger_mod
+
+                        t = time.monotonic()
+                        with tracing.span("takeover.prewarm"):
+                            # the ledger is shared: fold in what the
+                            # dead owner recorded since we loaded it
+                            self.compile_ledger.refresh()
+                            warm = ledger_mod.WarmupDriver(
+                                ledger=self.compile_ledger,
+                                studies=[study],
+                                device_recovery=self.device_recovery,
+                                enabled=True,
+                                device=self.device,
+                                runner=self.scheduler.call_soon,
+                            )
+                            warm.start()
+                            if not warm.wait(TAKEOVER_PREWARM_WAIT_S):
+                                # serve anyway (a cold first suggest
+                                # beats an unserved study); the items
+                                # not yet run are skipped
+                                warm.stop(timeout=0.0)
+                                logger.warning(
+                                    "takeover pre-warm of %r still "
+                                    "queued after %.0fs; serving",
+                                    study_id, TAKEOVER_PREWARM_WAIT_S,
+                                )
+                        split["prewarm"] = round(time.monotonic() - t, 4)
+                        record["prewarm"] = warm.counts()
+                    study.ownership = handle
+                    self.registry.install(study)
+                except Exception as e:
+                    logger.exception(
+                        "takeover of study %r failed", study_id
+                    )
+                    record["error"] = repr(e)
+                    # release so another (healthier) replica may adopt
+                    rs.leases.release(
+                        study_id, rs.replica_id, handle.fence
+                    )
+                    rs.drop(study_id)
+                    record["duration_s"] = round(
+                        time.monotonic() - t0, 4
+                    )
+                    rs.stats.record_takeover(record)
+                    rs.adoption_result(study_id, False)
+                    return False
+                record["ok"] = True
+                record["duration_s"] = round(time.monotonic() - t0, 4)
+                root.set_attr("fence", handle.fence)
+                root.set_attr("duration_s", record["duration_s"])
+        rs.stats.record_takeover(record)
+        rs.adoption_result(study_id, True)
+        self.stats.set_n_studies(len(self.registry))
+        logger.info(
+            "adopted study %r from %r in %.3fs (%s; fsck_clean=%s)",
+            study_id, record["from_owner"], record["duration_s"],
+            reason, record["fsck_clean"],
+        )
+        return True
+
+    def _relinquish_study(self, study_id):
+        """Evict a study whose lease was reclaimed (we were presumed
+        dead but are alive): stop serving it immediately.  On-disk
+        state is untouched — the new owner already recovered it, and
+        any of our queued writes drop at their own fence verify."""
+        if self.registry.remove(study_id):
+            logger.warning(
+                "relinquished study %r (lease reclaimed)", study_id
+            )
+            self.stats.set_n_studies(len(self.registry))
+        if self.replica_set is not None:
+            self.replica_set.drop(study_id)
+
+    def _not_owner(self, study_id) -> NotOwner:
+        owner, url = self.replica_set.owner_hint(study_id)
+        return NotOwner(study_id, owner_id=owner, owner_url=url)
+
     def _study_for_request(self, study_id) -> Study:
-        """Resolve a study for a serving request (the reference's replica
-        ownership checks wait for the replica plane)."""
-        return self.registry.get(study_id)
+        """Resolve a study for a serving request, enforcing replica
+        ownership: a locally-served study whose ownership lapsed is
+        relinquished and redirected; a study existing on disk but owned
+        elsewhere raises :class:`NotOwner` (307 with the owner hint);
+        an unowned on-disk study is adopted on demand (the client beat
+        the failure detector to it)."""
+        try:
+            study = self.registry.get(study_id)
+        except StudyNotFound:
+            if self.replica_set is None or self.registry.root is None:
+                raise
+            study = None
+        if study is not None:
+            if self.replica_set is not None:
+                handle = study.ownership
+                if handle is None or handle.lost:
+                    self._relinquish_study(study_id)
+                    raise self._not_owner(study_id)
+            return study
+        # not serving locally: known on disk?
+        qdir = self.registry._study_dir(study_id)
+        if not os.path.isdir(qdir):
+            raise StudyNotFound(f"no study {study_id!r}")
+        owner, url = self.replica_set.owner_hint(study_id)
+        if owner is not None:
+            raise NotOwner(study_id, owner_id=owner, owner_url=url)
+        # unowned (owner dead or released): adopt on demand
+        if self._adopt_study(study_id, "on_demand"):
+            return self.registry.get(study_id)
+        raise BackpressureError(
+            f"study {study_id!r} is migrating; retry shortly"
+        )
 
     def replica_status(self) -> dict:
-        """The ``GET /v1/replicas`` document: this server runs one
-        replica (the replica plane is not ported)."""
+        """The ``GET /v1/replicas`` document: this replica's identity,
+        held studies, takeover log, and the directory snapshot."""
         self.stats.record_request("replicas")
-        return {"replica_mode": False}
+        if self.replica_set is None:
+            return {"replica_mode": False}
+        out = self.replica_set.status()
+        out["replica_mode"] = True
+        return out
 
     # -- API -----------------------------------------------------------
     def create_study(self, study_id, space, seed=0, algo="tpe",
@@ -2264,6 +2597,18 @@ class OptimizationService:
             "service.create_study", study=str(study_id)
         ) as (_trace, root):
             with self.timings.phase("create_study"):
+                if self.replica_set is not None:
+                    try:
+                        self.registry.get(study_id)
+                    except StudyNotFound:
+                        qdir = self.registry._study_dir(study_id)
+                        if os.path.isdir(qdir):
+                            # the study exists on disk under another
+                            # replica's (or a dead replica's) lease:
+                            # adopt or redirect BEFORE the exist_ok
+                            # logic — a blind re-create would clobber
+                            # the recovered trajectory
+                            self._study_for_request(study_id)
                 try:
                     study = self.registry.create(
                         study_id, space, seed=seed, algo_name=algo,
@@ -2397,9 +2742,10 @@ class OptimizationService:
                     self.suggest_timeout if timeout is None else timeout
                 )
             except OwnershipLost:
-                # the commit-time fence verify dropped this write (only
-                # with the replica plane, which is not ported)
-                raise NotOwner(study_id)
+                # the commit-time fence verify dropped this write: the
+                # study was reclaimed; redirect to the new owner
+                self._relinquish_study(study_id)
+                raise self._not_owner(study_id)
             if trace is not None:
                 # the search-health verdict at serve time, on the same
                 # span operators already read latency/roofline from
@@ -2462,8 +2808,9 @@ class OptimizationService:
                         stop_record = study.check_early_stop()
                 except OwnershipLost:
                     # stale-fenced terminal write, dropped before any
-                    # journal/store mutation (replica plane only)
-                    raise NotOwner(study_id)
+                    # journal/store mutation: relinquish + redirect
+                    self._relinquish_study(study_id)
+                    raise self._not_owner(study_id)
                 if stop_record is not None:
                     root.set_attr("early_stopped", stop_record["rule"])
                     self._on_study_stopped(study, stop_record)
@@ -2519,6 +2866,7 @@ class OptimizationService:
     def service_status(self) -> dict:
         from .. import compile_ledger as ledger_mod
         from ..observability import build_info
+        from ..ops import fused_kernel, pair_kernel
 
         return {
             "studies": len(self.registry),
@@ -2533,6 +2881,15 @@ class OptimizationService:
                 "topology": ledger_mod.current_topology(),
             },
             "device": self.device_stats.summary(),
+            # this process's launches of each hand-written kernel (the
+            # wrappers' own counts: a CPU-device service reads 0)
+            "kernel_launches": {
+                fn.__name__: fn.launches for fn in (
+                    pair_kernel.pair_score_batched,
+                    fused_kernel.fused_suggest,
+                    pair_kernel.pair_score_single,
+                )
+            },
             "store": self.store_stats.summary(),
             "slo_breaching": self.slo.current_breaching(),
             "recovery": dict(self.registry.recovery_info),
@@ -2551,7 +2908,15 @@ class OptimizationService:
                     if self.controller is not None else None
                 ),
             },
-            "replica": None,
+            "replica": (
+                {
+                    "replica_id": self.replica_set.replica_id,
+                    "url": self.replica_set.url,
+                    "owned_studies": self.replica_set.owned_studies(),
+                    "stats": self.replica_set.stats.summary(),
+                }
+                if self.replica_set is not None else None
+            ),
         }
 
     def alerts(self) -> dict:
@@ -2721,6 +3086,32 @@ class OptimizationService:
         eta = self.warmup.progress_brief()["eta_s"]
         if eta is not None:
             extra["compile_warmup_eta_seconds"] = eta
+        if self.replica_set is not None:
+            # replica-plane gauges: fleet dashboards sum/compare these
+            # across replicas (identity lives in the scrape target)
+            rstats = self.replica_set.stats
+            extra.update({
+                "replica_studies_owned": len(
+                    self.replica_set.owned_studies()
+                ),
+                "replica_directory_size": len(
+                    self.replica_set.directory.replicas()
+                ),
+                "replica_takeovers_total": rstats.get("takeover"),
+                "replica_takeovers_slow_total": rstats.get(
+                    "takeover_slow"
+                ),
+                "replica_takeovers_failed_total": rstats.get(
+                    "takeover_failed"
+                ),
+                "replica_stale_writes_dropped_total": rstats.get(
+                    "stale_write_dropped"
+                ),
+                "replica_heartbeats_total": rstats.get("heartbeat"),
+                "replica_lease_renew_lost_total": rstats.get(
+                    "renew_lost"
+                ),
+            })
         return render_prometheus(
             timings=self.timings,
             faults=self.fault_stats,
@@ -2750,6 +3141,11 @@ class OptimizationService:
             self.controller.close()
         self.warmup.stop()
         self.scheduler.close(timeout=timeout)
+        if self.replica_set is not None:
+            # graceful handover: release every held lease (fence
+            # preserved) so a successor claims instantly instead of
+            # waiting out the TTL, and withdraw the directory record
+            self.replica_set.close(release=True)
         self.slo.close()
         self.warmup.stop()
         self._uninstall_compile_observer()

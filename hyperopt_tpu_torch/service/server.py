@@ -28,10 +28,10 @@ API (all JSON unless noted)::
                                           compiling/warm/skipped/error),
                                           ETA from ledger durations,
                                           compile-ledger summary
-    GET  /v1/replicas                     replica-plane document
-                                          ({"replica_mode": false}: one
-                                          replica; the plane is not
-                                          ported)
+    GET  /v1/replicas                     replica-plane document: this
+                                          replica's identity, held
+                                          studies, takeover log, and the
+                                          live replica directory
     GET  /v1/studies                      {"studies": [id, ...]}
     GET  /v1/studies/<id>                 study status document
     POST /v1/studies                      create: {"study_id", "space_b64",
@@ -48,10 +48,11 @@ header (retry is always safe — a rejected request had no side effects);
 a draining server returns **503**; unknown studies **404**; create
 collisions **409**; malformed requests **400**.  Suggest waits are
 bounded by the service's ``suggest_timeout`` and surface as **504**.
-The multi-replica mode's **307 Temporary Redirect** (``NotOwner`` with
-an owner URL) stays in the status mapping for the replica plane's
-port; with one replica a ``NotOwner`` can only be the retryable
-**503**.
+In multi-replica mode a study served by another replica answers **307
+Temporary Redirect** with a ``Location`` header and an ``owner_url``
+body field (send the same body there again; idempotency keys make the
+re-send safe), or a retryable **503** while the owner is unknown
+(mid-migration).
 
 Exactly-once contract: the mutating routes (``create``, ``suggest``,
 ``report``) accept a client-generated ``idempotency_key`` in the body.
@@ -240,11 +241,23 @@ class _Handler(BaseHTTPRequestHandler):
         return True
 
     def _chaos_partitioned(self) -> bool:
-        """Asymmetric-partition chaos site (a client↔replica partition
-        with the replica's store heartbeats alive): it needs the replica
-        plane, which is not ported, so with one replica it never
-        fires."""
-        return False
+        """Asymmetric-partition chaos site: while a client↔replica
+        partition window is open, EVERY request's connection is dropped
+        without a response — but the replica's store-side heartbeats
+        keep running (replica↔store alive), so its leases stay warm and
+        no failover fires.  Exactly the scenario where redirects and
+        client-side ring failover, not lease expiry, must carry the
+        traffic."""
+        monkey = _active_chaos()
+        if monkey is None or self.service.replica_set is None:
+            return False
+        rid = self.service.replica_set.replica_id
+        monkey.maybe_client_partition(rid)
+        if not monkey.client_partitioned(rid):
+            return False
+        logger.info("chaos: client partition drop (replica %s)", rid)
+        self.close_connection = True
+        return True
 
     # -- routes --------------------------------------------------------
     def do_GET(self):

@@ -6,8 +6,8 @@ pillars — request tracing, device roofline profiling, search-health
 verdicts — are watched here ("model search as an experiment apparatus",
 Bergstra, Yamins & Cox, ICML 2013: the apparatus must report when it is
 out of tolerance, not just log numbers).  SL608 reads the replica
-plane's stats, which are not ported (ROADMAP.md, queue A item 5): with
-``replica_stats=None`` it reports ``no_data``.
+plane's ``ReplicaStats``; a single-process service passes
+``replica_stats=None`` and SL608 reports ``no_data``.
 
 - **SL6xx rules** — declarative objectives over the existing stats
   objects (:class:`~hyperopt_tpu_torch.observability.ServiceStats` /
@@ -429,7 +429,7 @@ class FailoverMttrRule(SloRule):
     """SL608: every replica takeover completes fast and clean — zero
     failed takeovers and zero takeovers slower than the MTTR bound
     (classified at record time by
-    the reference's ``ReplicaStats`` against its
+    :class:`~hyperopt_tpu_torch.service.replicas.ReplicaStats` against its
     ``mttr_bound_s``, default 30 s).  Zero-tolerance like SL605: the
     burn IS the bad-takeover count.  A takeover's duration covers the
     whole claim → fsck → recover → ledger-pre-warm pipeline, so a slow

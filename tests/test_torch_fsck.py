@@ -6,8 +6,9 @@ FS401's journal restore over hand-written service attachments.  Each
 damage is made identically in two copies of one queue; the JAX package's
 fsck runs on one copy and the port's on the other, and the dry-run
 findings, the repairs and the repaired trees are equal — on queues either
-package wrote.  The service-root checks (FS409, ``fsck_service_root``)
-wait for the service slice."""
+package wrote.  The service-root checks (``fsck_service_root`` and the
+replica plane's FS409) are held against the JAX package's in
+``tests/test_torch_service.py`` and ``tests/test_torch_replicas.py``."""
 
 import json
 import os
@@ -325,8 +326,8 @@ def test_cli_exit_codes_and_json(tmp_path, capsys):
 def test_module_entry_point_and_service_root(tmp_path):
     """``python -m hyperopt_tpu_torch.resilience.fsck <queue>`` exits 0 on a
     clean queue, with no warning and without importing JAX; a service root
-    (``studies/``) is checked study by study, and one with a replica plane
-    (``replicas/``) raises, naming the slice its checks wait for."""
+    (``studies/``) is checked study by study, and its replica plane
+    (``replicas/``, FS409) with it."""
     q = str(tmp_path / "q")
     _mk_queue(tft, q)
     code = ("import runpy, sys\n"
@@ -350,7 +351,13 @@ def test_module_entry_point_and_service_root(tmp_path):
     shutil.copytree(q, tmp_path / "root" / "studies" / "s")
     report = tfsck.fsck_path(str(tmp_path / "root"))
     assert report.clean and report.summary()["n_queues"] == 1
-    os.makedirs(tmp_path / "root" / "replicas")
-    with pytest.raises(NotImplementedError, match="queue A item 5"):
-        tfsck.fsck_path(str(tmp_path / "root"))
+    os.makedirs(tmp_path / "root" / "replicas" / "leases")
+    lock = tmp_path / "root" / "replicas" / "leases" / "s.claimlock"
+    lock.write_text("")
+    os.utime(lock, (0, 0))  # a claimant killed mid-claim long ago
+    report = tfsck.fsck_path(str(tmp_path / "root"))
+    assert [f.rule for f in report.findings] == ["FS409"]
+    assert report.summary()["n_queues"] == 1
+    assert tfsck.fsck_path(str(tmp_path / "root"), repair=True).clean
+    assert tfsck.fsck_path(str(tmp_path / "root")).clean
     assert tfsck.fsck_path(q).clean

@@ -652,3 +652,68 @@ def test_service_batched_dispatch_on_card(cuda, monkeypatch):
     finally:
         gate.set()
         svc.close()
+
+
+def test_replica_takeover_prewarms_on_card_and_continues_the_trajectory(cuda, monkeypatch,
+                                                                        tmp_path):
+    """Two replicas on one card share a root; the owner of a study stops
+    (its replica set's heartbeat and reaper halted, its lease left to
+    expire, its scheduler closed).  The survivor adopts the study: the
+    takeover's pre-warm launches the pair-score kernel on the survivor's
+    scheduler thread, and the study's next trials equal an unmigrated
+    twin's on the card, value for value.  Both replicas live in this one
+    process, which shares one warm-key set; the survivor's is cleared at
+    the crash, as a process of its own would start without the victim's."""
+    import time
+
+    import chip_smoke as cs
+    import hyperopt_tpu_torch as T
+    from hyperopt_tpu_torch.algos import tpe_device
+    from hyperopt_tpu_torch.fmin import space_eval
+    from hyperopt_tpu_torch.service import OptimizationService
+
+    monkeypatch.setenv("HYPEROPT_TPU_SCORER", "pallas")  # no probe: the pair-score kernel
+    space = cs.bench_space(T.hp)
+    ap = {"n_startup_jobs": 4, "n_EI_candidates": 1024}
+    n_pre, n_post = 10, 4  # every suggest after the crash in one history bucket (16)
+
+    def serve(svc, n):
+        out = []
+        for _ in range(n):
+            (t,) = svc.suggest("mig")
+            out.append(t["vals"])
+            svc.report("mig", t["tid"], loss=cs.bench_objective(space_eval(space, t["vals"])))
+        return out
+
+    twin = OptimizationService(root=None, device="cuda", batch_window=0.001, warmup=False)
+    try:
+        twin.create_study("mig", space, seed=3, algo="tpe", algo_params=ap)
+        want = serve(twin, n_pre + n_post)
+    finally:
+        twin.close()
+    root = str(tmp_path / "root")
+    kw = dict(root=root, device="cuda", replica_ttl=2.0, batch_window=0.001, warmup=False)
+    s1 = OptimizationService(replica_id="r1", advertise_url="http://r1", **kw)
+    s2 = OptimizationService(replica_id="r2", advertise_url="http://r2", **kw)
+    try:
+        s1.create_study("mig", space, seed=3, algo="tpe", algo_params=ap)
+        got = serve(s1, n_pre)
+        s1.replica_set._stop.set()  # the crash: no release, no more renewals
+        s1.scheduler.close(timeout=60)
+        monkeypatch.setattr(tpe_device, "_warm_keys", set())
+        before = pair_score_batched.launches
+        deadline = time.monotonic() + 120
+        while not s2.replica_set.stats.takeovers() and time.monotonic() < deadline:
+            time.sleep(0.05)
+        (rec,) = s2.replica_set.stats.takeovers()
+        assert rec["ok"] and rec["fsck_clean"] and rec["from_owner"] == "r1", rec
+        assert rec["prewarm"]["warm"] >= 1 and rec["prewarm"]["error"] == 0, rec
+        assert pair_score_batched.launches - before >= 2  # the pre-warm, on the card
+        cold = s2.stats.summary()["n_cold_suggests"]
+        got += serve(s2, n_post)
+        assert s2.stats.summary()["n_cold_suggests"] == cold
+        assert s2.replica_set.stats.get("renew_lost") == 0
+    finally:
+        s1.close()
+        s2.close()
+    assert got == want

@@ -1558,11 +1558,10 @@ def test_service_needs_a_card_or_an_explicit_cpu(tmp_path):
 
 
 def test_replica_and_mesh_options_raise_naming_the_roadmap(tmp_path):
-    """What waits for a later slice raises, naming where it is queued."""
-    with pytest.raises(NotImplementedError, match="queue A item 5"):
-        Svc(root=str(tmp_path / "r"), replica_id="r1")
-    with pytest.raises(NotImplementedError, match="queue A item 5"):
-        Svc(root=str(tmp_path / "r"), mirror_src_root=str(tmp_path / "m"))
+    """A mesh over several cards waits for a later slice and raises,
+    naming where it is queued; the replica options work (the replica
+    plane is ported: ``tests/test_torch_replicas.py``) and none raises
+    ``NotImplementedError``."""
     with pytest.raises(NotImplementedError, match="queue A item 6"):
         Svc(root=None, mesh="2x1")
     for mesh in (None, "off", "auto"):
@@ -1571,18 +1570,29 @@ def test_replica_and_mesh_options_raise_naming_the_roadmap(tmp_path):
             assert svc.mesh_label == "off"
         finally:
             svc.close()
-    from hyperopt_tpu_torch.service.__main__ import main
+    svc = Svc(root=str(tmp_path / "r"), replica_id="r1", advertise_url="http://127.0.0.1:1",
+              replica_ttl=30.0, mirror_src_root=str(tmp_path / "m"), warmup=False)
+    try:
+        doc = svc.replica_status()
+        assert doc["replica_mode"] is True and doc["replica_id"] == "r1"
+        assert doc["ttl"] == 30.0 and svc.replica_set.mirror is not None
+    finally:
+        svc.close()
+    with pytest.raises(ValueError, match="root"):
+        Svc(root=None, replica_id="r1", warmup=False)
+    with pytest.raises(ValueError, match="replica_id"):
+        Svc(root=str(tmp_path / "r"), mirror_src_root=str(tmp_path / "m"), warmup=False)
+    from hyperopt_tpu_torch.service.__main__ import make_parser, main
 
-    with pytest.raises(NotImplementedError, match="queue A item 5"):
-        main(["--root", str(tmp_path / "c"), "--port", "0", "--device", "cpu",
-              "--replica-id", "r1"])
-    # the replica plane's other options do not exist until it is ported
-    for flag in ("--advertise-url", "--replica-ttl", "--unsafe-shared-compile-cache"):
-        with pytest.raises(SystemExit):
-            main(["--root", str(tmp_path / "c"), "--port", "0", "--device", "cpu",
-                  flag, "1"])
-    with pytest.raises(TypeError):
-        Svc(root=None, advertise_url="http://127.0.0.1:1", warmup=False)
+    # the CLI's replica arguments parse, and its checks refuse bad ones
+    options = make_parser().parse_args([
+        "--root", str(tmp_path / "c"), "--device", "cpu", "--replica-id", "r1",
+        "--advertise-url", "http://127.0.0.1:1", "--replica-ttl", "3",
+        "--mirror-src-root", str(tmp_path / "m")])
+    assert (options.replica_id, options.advertise_url, options.replica_ttl,
+            options.mirror_src_root) == ("r1", "http://127.0.0.1:1", 3.0, str(tmp_path / "m"))
+    assert main(["--root", str(tmp_path / "c"), "--port", "0", "--device", "cpu",
+                 "--replica-id", "r1"]) == 2  # no predictable advertise URL
 
 
 def test_only_the_scheduler_thread_dispatches_and_reads_its_own_record(monkeypatch):
@@ -1640,7 +1650,8 @@ def test_only_the_scheduler_thread_dispatches_and_reads_its_own_record(monkeypat
 def test_fsck_cli_on_a_service_root(tmp_path):
     """``python -m hyperopt_tpu_torch.service fsck ROOT`` checks every
     study queue under the root and exits 0 when clean; a root with a
-    replica plane raises, naming the slice its checks wait for."""
+    replica plane is checked too (FS409), and a torn lease there is a
+    finding the repair clears."""
     root = str(tmp_path / "r")
     svc = Svc(root=root, batch_window=0.001, warmup=False)
     try:
@@ -1658,7 +1669,17 @@ def test_fsck_cli_on_a_service_root(tmp_path):
     report = json.loads(out.stdout)
     assert report["clean"] is True and report["n_queues"] == 2 and report["n_docs"] == 2
     from hyperopt_tpu_torch.resilience.fsck import fsck_path
+    from hyperopt_tpu_torch.service.replicas import StudyLeaseStore
 
-    os.makedirs(os.path.join(root, "replicas"))
-    with pytest.raises(NotImplementedError, match="queue A item 5"):
-        fsck_path(root)
+    store = StudyLeaseStore(root, ttl=30.0)
+    store.claim("a", "r1")
+    assert fsck_path(root).clean
+    with open(store.lease_path("a"), "r+b") as f:
+        f.truncate(10)
+    report = fsck_path(root)
+    assert not report.clean and [f.rule for f in report.findings] == ["FS409"]
+    out = subprocess.run([sys.executable, "-m", "hyperopt_tpu_torch.service", "fsck",
+                          root, "--repair"], capture_output=True, text=True,
+                         timeout=WAIT_S, cwd=ROOT)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert fsck_path(root).clean

@@ -25,8 +25,9 @@ Covers the contracts:
 - the service surfaces: ``/v1/alerts`` over HTTP, client.alerts(),
   slo/store/build-info families on ``/metrics``, crash-hook dump.
 
-SL608 (failover MTTR) reads the replica plane, which is not ported: the
-port's engine reports it ``no_data``.
+SL608 (failover MTTR) reads the replica plane's ``ReplicaStats``: a
+single-process service reports it ``no_data`` (its ``ok`` and ``breach``
+over a replica service are in ``tests/test_torch_replicas.py``).
 """
 
 import json
@@ -704,7 +705,8 @@ def test_slo_registered_and_race_clean():
 
 
 def test_failover_rule_reads_no_data_without_a_replica_plane(tmp_path):
-    """The port's service has one replica: SL608 reports ``no_data``."""
+    """A single-process service has no replica plane: SL608 reports
+    ``no_data``."""
     from hyperopt_tpu_torch.service import OptimizationService
 
     svc = OptimizationService(root=str(tmp_path / "r"), device="cpu",
