@@ -150,7 +150,28 @@ non-zero without the final line):
     seconds, each takeover's split, the client-seen gap, wall ms per trial
     before and after the kill, ``r2``'s p50/p99 after it, and the
     phase's seconds.
-25. ``timing``: each kernel, its plain version and one PyTorch library call
+25. ``mesh``: mesh execution on the one card.  The pair-score kernel's
+    partials launch (one mesh shard's step) against its plain version at
+    the main path's shape and a ragged one, its difference against the
+    kernel's scores bit for bit, and the combine of sp = 1, 2, 4 shards
+    against the unsharded kernel, within TOLERANCE; ``DeviceMesh.auto()``
+    on one card is degenerate and ``tpe.suggest(mesh="auto")`` gives
+    ``mesh=None``'s docs and launches; virtual 1x2, 2x1 and 2x2 meshes
+    (slots on cuda:0, each its own stream): 8 seeds at the 10,000-trial
+    history against the unsharded kernel path (every mismatch printed, and
+    a near-tie within twice TOLERANCE), a 16-trial fmin on
+    ``tests/test_mesh.py``'s space trial for trial equal to ``mesh=None``,
+    dp*sp launches per scorer call, the sharded scorer's event ms (also
+    with the garbage collector off) beside the unsharded kernel's; the
+    2x2 mesh's main path (fmin at the 10,000-trial history, 8 launches
+    per suggest, the counts set to 0 before and read after) beside the
+    same fmin without a mesh in the same process state, each suggest's
+    host ms split by stage, and one steady suggest each way under
+    ``torch.profiler`` (host ms per stage, CUDA runtime calls, the card's
+    busy ms); a one-rank NCCL group (all-reduce MAX and SUM
+    of a CUDA tensor, ``global_mesh``); ``TorchTrials(device_fn=...)`` on
+    a virtual 2x1 mesh against the unsharded device plane.
+26. ``timing``: each kernel, its plain version and one PyTorch library call
     computing the same function, by CUDA events at the main-path shape;
     the kernel's device ms per launch (``torch.profiler``); its bound, the
     larger of the f32 operations at the f32 peak, the issue slots and SFU
@@ -158,9 +179,16 @@ non-zero without the final line):
     the bytes at the memory rate, and its share of that bound; beside it
     the SFU-only time and its share.
 
+A ``process_state`` line after ``main_path``, at the start of ``mesh``
+and before its main path lists what else runs (threads, other processes,
+observers, a profiler), the heap's and the allocator's counters, the
+card's clocks and use, the host µs of one small CUDA op and the event ms
+of the pair-score kernel.
+
 Every phase but ``fused_probe`` runs with ``HYPEROPT_TPU_FUSED_PROBE=0``,
 so the probe does not change the tier the others measure.  Then the
-``kernels`` line (with ``launches_service``, each kernel's launches in
+``kernels`` line (``pair_lse_partials``' launches are the mesh phase's
+main path's; with ``launches_service``, each kernel's launches in
 the service phase's concurrent run, and ``launches_replica_failover``,
 the surviving replica's launches after the kill), the ``nvidia-smi``
 line, and last
@@ -169,6 +197,8 @@ line, and last
 """
 
 import contextlib
+import datetime
+import gc
 import json
 import logging
 import math
@@ -176,6 +206,7 @@ import os
 import re
 import shutil
 import signal
+import socket
 import subprocess
 import threading
 import sys
@@ -1906,8 +1937,8 @@ class DispatchLog:
                 self.failed.append(i)
                 raise
 
-    def history_for(self, *args):
-        dh = self._real(*args)
+    def history_for(self, *args, **kwargs):
+        dh = self._real(*args, **kwargs)
         if all(dh is not h for h in self.histories):
             self.histories.append(dh)
         return dh
@@ -2726,6 +2757,402 @@ def phase_replica_failover(T):
     return launches
 
 
+# tests/test_mesh.py's space and algo parameters, and the virtual meshes
+# the mesh phase lays on the one card (each slot its own stream)
+MESH_SPACE_AP = {"n_startup_jobs": 4, "n_EI_candidates": 32}
+MESH_SHAPES = [(1, 2), (2, 1), (2, 2)]
+
+
+def mesh_space(hp):
+    return {"x": hp.uniform("x", -5, 5), "c": hp.choice("c", ["a", "b"]),
+            "w": hp.quniform("w", 0, 10, 1)}
+
+
+def mesh_objective(c):
+    return (c["x"] - 1.0) ** 2 + (0.5 if c["c"] == "b" else 0.0) + 0.1 * c["w"]
+
+
+def virtual_mesh(shape):
+    from hyperopt_tpu_torch.parallel.sharding import DeviceMesh
+
+    return DeviceMesh(["cuda:0"] * (shape[0] * shape[1]), shape=shape)
+
+
+def hold_partials():
+    """The partials launch against its plain version (both regions) at the
+    main path's shape and a small ragged one, its difference against the
+    pair-score kernel bit for bit, and the combine of sp = 1, 2, 4 shards
+    against the unsharded kernel: each within TOLERANCE."""
+    from hyperopt_tpu_torch.ops.pair_kernel import pair_lse_partials, pair_score_batched
+    from hyperopt_tpu_torch.ops.score import pair_lse_partials as plain_partials
+    from hyperopt_tpu_torch.ops.score import pair_score
+    from hyperopt_tpu_torch.parallel import sharding
+
+    main_err = None
+    for name in ("main", "ragged"):
+        shape = MAIN_SHAPE if name == "main" else EDGE_SHAPES["ragged"]
+        z, params = pair_case(seed=len(name) + 7, **shape)
+        kb = shape["kb"]
+        got = pair_lse_partials(z, params, kb)
+        scores = pair_score_batched(z, params, kb)
+        ref = plain_partials(z, params, kb)
+        ref64 = plain_partials(z.double(), params.double(), kb)
+        torch.cuda.synchronize()
+        allow, plain_err = allowance(ref, ref64)
+        err = (got - ref).abs()
+        row = {"max_abs_err": float(err.max()), "plain_vs_f64_err": plain_err,
+               "ok": bool((err <= allow).all()) and bool(torch.isfinite(got).all()),
+               "difference_bitwise_equals_kernel": bool(torch.equal(
+                   (got[0] - got[1]).view(torch.int32), scores.view(torch.int32)))}
+        s_ref, s_ref64 = pair_score(z, params, kb), pair_score(z.double(), params.double(), kb)
+        s_allow, _ = allowance(s_ref, s_ref64)
+        for sp in (1, 2, 4):
+            shards, wb = sharding._region_shards(params, kb, sp)
+            combined = sharding.lse_combine([pair_lse_partials(z, p, wb) for p in shards])
+            e = (combined[0] - combined[1] - scores).abs()
+            row[f"combine_sp{sp}_vs_kernel_err"] = float(e.max())
+            row["ok"] = row["ok"] and bool((e <= s_allow).all())
+        row["ok"] = row["ok"] and row["difference_bitwise_equals_kernel"]
+        emit("mesh", part="partials_vs_plain", shape=name, **shape, **row, tolerance=TOLERANCE)
+        assert row["ok"], (name, row)
+        if name == "main":
+            main_err = row["max_abs_err"]
+    return main_err
+
+
+def mesh_winners(T, domain, trials, seed, mesh=None):
+    docs = T.tpe.suggest([N_HISTORY], domain, trials, seed, n_EI_candidates=N_CAND, mesh=mesh)
+    return {k: v[0] for k, v in docs[0]["misc"]["vals"].items()}
+
+
+def mesh_near_tie(T, domain, trials, seed, label, a, b):
+    """The plain scores on the card of the suggest's own candidates for
+    ``label``: the gap between the two winners ``a`` and ``b`` against
+    twice the per-score TOLERANCE (each scorer is within one TOLERANCE of
+    the plain version, so their argmaxes can differ only where the plain
+    scores of the two winners are that close)."""
+    cands, s = T.tpe.plain_label_scores([N_HISTORY], domain, trials, seed, label,
+                                        device="cuda", n_EI_candidates=N_CAND)
+    _, s64 = T.tpe.plain_label_scores([N_HISTORY], domain, trials, seed, label,
+                                      dtype=torch.float64, device="cuda",
+                                      n_EI_candidates=N_CAND)
+    pick = [int(np.argmin(np.abs(cands[0] - a))), int(np.argmin(np.abs(cands[0] - b)))]
+    allow, _ = allowance(torch.from_numpy(s[0, pick]), torch.from_numpy(s64[0, pick]))
+    return {"seed": seed, "label": label, "unsharded": a, "sharded": b,
+            "gap": float(abs(s[0, pick[0]] - s[0, pick[1]])), "allow": 2 * float(allow.min())}
+
+
+def process_state(where):
+    """What else runs beside the script, printed at ``where``: the live
+    threads (a trailing ``*`` marks a daemon), every other Python process
+    on the machine with its command line, the suggest plane's observers, whether
+    an autograd profiler is on, the Python heap's object count, the
+    caching allocator's counters, the card's clocks, power and use, the
+    host µs of one small CUDA op (2,000 in-place adds: a slow-down of op
+    dispatch) and the event ms of the pair-score kernel at the main shape
+    (20 launches: a slow-down of the card)."""
+    from hyperopt_tpu_torch.algos import tpe_device
+    from hyperopt_tpu_torch.ops.pair_kernel import pair_score_batched
+
+    threads = [t.name + ("*" if t.daemon else "") for t in threading.enumerate()
+               if t is not threading.main_thread()]
+    others = {}
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit() or int(pid) == os.getpid():
+            continue
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace").strip()
+        except OSError:
+            continue
+        if "python" in cmd.split(" ")[0]:
+            others[pid] = cmd[:120]
+    on = getattr(torch._C._autograd, "_profiler_enabled", lambda: None)()
+    mem = torch.cuda.memory_stats()
+    allocator = {k: mem.get(k) for k in (
+        "allocated_bytes.all.current", "reserved_bytes.all.current", "segment.all.current",
+        "active.all.current", "num_alloc_retries", "num_device_alloc", "num_device_free",
+        "num_sync_all_streams")}
+    x = torch.zeros(16, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(2000):
+        x.add_(1.0)
+    op_us = (time.perf_counter() - t0) / 2000 * 1e6
+    torch.cuda.synchronize()
+    z, params = pair_case(seed=3, **MAIN_SHAPE)
+    kernel_ms = cuda_ms(lambda: pair_score_batched(z, params, MAIN_SHAPE["kb"]), 20)
+    emit("process_state", where=where, threads=threads, other_processes=others,
+         suggest_observers=len(tpe_device._suggest_observers),
+         trace_observers=len(tpe_device._trace_observers), autograd_profiler_on=on,
+         gc_objects=len(gc.get_objects()), allocator=allocator,
+         card=nvidia_smi("clocks.sm,clocks.mem,power.draw,temperature.gpu,utilization.gpu,"
+                         "memory.used"),
+         op_host_us=op_us, probe_kernel_ms=kernel_ms, loadavg=os.getloadavg())
+
+
+@contextlib.contextmanager
+def stage_timers(targets):
+    """Host ms spent in each ``(module, name)`` of ``targets``: each is
+    wrapped to add its wall time to ``totals[name]`` (inclusive of the
+    stages it calls) and to mark a ``torch.profiler`` range of that name;
+    the originals are put back on exit."""
+    totals = {name: 0.0 for _, name in targets}
+    saved = []
+    for mod, name in targets:
+        fn = getattr(mod, name)
+
+        def timed(*args, _fn=fn, _name=name, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                with torch.profiler.record_function(_name):
+                    return _fn(*args, **kwargs)
+            finally:
+                totals[_name] += (time.perf_counter() - t0) * 1e3
+
+        saved.append((mod, name, fn))
+        setattr(mod, name, timed)
+    try:
+        yield totals
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def profile_suggest(suggest, labels):
+    """One suggest under ``torch.profiler`` (host and card): host ms of
+    each range in ``labels``, the count of each CUDA runtime call the
+    suggest made, the card's busy ms (the sum of its kernels' and
+    copies' device time) and its busiest kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        suggest()
+        torch.cuda.synchronize()
+    host, calls, kernels = {}, {}, {}
+    for a in prof.key_averages():
+        if a.key in labels:
+            # a range has a host entry and a card-side annotation that
+            # spans its kernels: only the host one is read
+            if a.device_type == DeviceType.CPU:
+                host[a.key] = a.cpu_time_total / 1e3
+        elif a.device_type == DeviceType.CUDA:
+            kernels[a.key] = (a.self_device_time_total / 1e3, a.count)
+        elif a.key.startswith("cuda") and a.key[4:5].isupper():
+            calls[a.key] = a.count
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:6]
+    return {"host_ms": host, "runtime_calls": calls,
+            "device_busy_ms": sum(ms for ms, _ in kernels.values()),
+            "device_launches": sum(n for _, n in kernels.values()),
+            "top_kernels": [{"kernel": k[:80], "ms": ms, "count": n} for k, (ms, n) in top]}
+
+
+def phase_mesh(T, counters):
+    """Mesh execution on the one card: the partials launch held, the
+    degenerate mesh, virtual meshes (1x2, 2x1, 2x2 slots on cuda:0, each
+    its own stream) against the unsharded kernel path, the mesh's main
+    path at the 10,000-trial history, a one-rank NCCL group, and
+    TorchTrials' device plane split over dp."""
+    from hyperopt_tpu_torch.ops.pair_kernel import pair_lse_partials, pair_score_batched
+    from hyperopt_tpu_torch.parallel import distributed, sharding
+
+    t_phase = time.perf_counter()
+    process_state("mesh_start")
+    err = hold_partials()
+
+    # degenerate: one card's "auto" is the single-device program
+    auto = sharding.DeviceMesh.auto()
+    assert auto.grid is None and sharding.resolve_mesh(auto) is None, auto
+    trials = prefilled_trials(T, N_HISTORY)
+    domain = T.Domain(bench_objective, bench_space(T.hp))
+    runs = {}
+    for mesh in (None, "auto"):
+        for c in counters:
+            c.launches = 0
+        runs[mesh] = (mesh_winners(T, domain, trials, 0, mesh),
+                      {c.__name__: c.launches for c in counters})
+    emit("mesh", part="degenerate", auto_grid=None, docs_equal=runs[None][0] == runs["auto"][0],
+         launches_none=runs[None][1], launches_auto=runs["auto"][1])
+    assert runs[None] == runs["auto"], runs
+
+    # virtual meshes against the unsharded kernel path, 8 seeds
+    unsharded = {seed: mesh_winners(T, domain, trials, seed) for seed in range(8)}
+    z, params = pair_case(seed=11, **MAIN_SHAPE)
+    kb = MAIN_SHAPE["kb"]
+    kernel_ms = cuda_ms(lambda: pair_score_batched(z, params, kb), 50)
+    fan = {}
+    for shape in MESH_SHAPES:
+        mesh = virtual_mesh(shape)
+        pairs, close, ties = 0, 0, []
+        for seed in range(8):
+            got = mesh_winners(T, domain, trials, seed, mesh)
+            for lb, v in unsharded[seed].items():
+                pairs += 1
+                if np.isclose(got[lb], v, rtol=1e-5):
+                    close += 1
+                else:
+                    ties.append(mesh_near_tie(T, domain, trials, seed, lb, v, got[lb]))
+        outside = [t for t in ties if not t["gap"] <= t["allow"]]
+        # the same fmin, trial for trial, with and without the mesh
+        tr = {}
+        for m in (None, mesh):
+            tr[m] = T.Trials()
+            T.fmin(mesh_objective, mesh_space(T.hp),
+                   algo=partial(T.tpe.suggest, mesh=m, **MESH_SPACE_AP), max_evals=16,
+                   trials=tr[m], rstate=np.random.default_rng(11), show_progressbar=False,
+                   max_speculation=0)
+        same = [a["misc"]["vals"] == b["misc"]["vals"]
+                for a, b in zip(tr[None].trials, tr[mesh].trials)]
+        score = sharding.make_sharded_pair_score_batched(mesh)
+        for c in counters:
+            c.launches = 0
+        score(z, params, kb)
+        torch.cuda.synchronize()
+        per_call = pair_lse_partials.launches
+        fan[shape] = cuda_ms(lambda: score(z, params, kb), 50)
+        gc.collect()
+        gc.disable()  # the same timing without the collector's pauses
+        try:
+            fan_gc_off = cuda_ms(lambda: score(z, params, kb), 50)
+        finally:
+            gc.enable()
+        emit("mesh", part="virtual", mesh=mesh.shape_str, slots=mesh.n_devices,
+             seeds=8, pairs=pairs, equal=close, mismatches=ties, outside_allowance=outside,
+             fmin_trials=len(same), fmin_equal=sum(same), launches_per_scorer_call=per_call,
+             sharded_ms=fan[shape], sharded_ms_gc_off=fan_gc_off,
+             unsharded_kernel_ms=kernel_ms, shape=MAIN_SHAPE,
+             tolerance="each mismatch a near-tie: |plain gap| <= 2 x TOLERANCE")
+        assert not outside and len(same) == 16 and all(same), (shape, outside, same)
+        assert per_call == shape[0] * shape[1], per_call
+
+    # the mesh's main path: fmin at the 10,000-trial history on 2x2, the
+    # counts set to 0 just before and read just after; the same fmin
+    # without a mesh first, in the same process state, as its control.
+    # Each suggest's host ms split by stage (inclusive: the pair apply
+    # holds the blocks, shards, fan-out, combine and assemble)
+    from hyperopt_tpu_torch.algos import tpe_device
+
+    stages = [(tpe_device, "_family_suggest_core"), (tpe_device, "_sharded_pair_apply"),
+              (tpe_device, "pair_score_batched"), (sharding, "_blocks"),
+              (sharding, "_region_shards"), (sharding, "run_on_slots"),
+              (sharding, "_combine_rows"), (sharding, "_assemble"), (sharding, "dp_apply")]
+
+    def drive(mesh_, trials_):
+        times, splits = [], []
+        with stage_timers(stages) as totals:
+            def timed_suggest(new_ids, domain_, tr, seed):
+                before = dict(totals)
+                t0 = time.perf_counter()
+                docs = T.tpe.suggest(new_ids, domain_, tr, seed, n_EI_candidates=N_CAND,
+                                     mesh=mesh_)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+                splits.append({k: totals[k] - before[k] for k in totals})
+                return docs
+
+            T.fmin(bench_objective, bench_space(T.hp), algo=timed_suggest,
+                   max_evals=N_HISTORY + N_SUGGESTS, trials=trials_,
+                   rstate=np.random.default_rng(0), show_progressbar=False)
+        steady = {k: float(np.median([sp[k] for sp in splits[1:]])) for k in splits[0]}
+        return times, {k: v for k, v in steady.items() if v > 0}
+
+    process_state("mesh_before_main_path")
+    control_times, control_split = drive(None, prefilled_trials(T, N_HISTORY))
+    mesh = virtual_mesh((2, 2))
+    trials = prefilled_trials(T, N_HISTORY)
+    for c in counters:
+        c.launches = 0
+    times, split = drive(mesh, trials)
+    launches = {c.__name__: c.launches for c in counters}
+    for doc in trials.trials[N_HISTORY:]:
+        check_bench_values({k: v[0] for k, v in doc["misc"]["vals"].items()})
+        assert math.isfinite(doc["result"]["loss"])
+    emit("mesh", part="main_path", mesh="2x2", n_history=N_HISTORY, n_suggests=N_SUGGESTS,
+         launches=launches, launches_per_suggest=launches["pair_lse_partials"] / N_SUGGESTS,
+         suggest_ms_first=times[0], suggest_ms_steady=float(np.median(times[1:])),
+         stage_host_ms_steady=split,
+         control_no_mesh_ms_first=control_times[0],
+         control_no_mesh_ms_steady=float(np.median(control_times[1:])),
+         control_stage_host_ms_steady=control_split)
+    # 2 unquantized families per suggest, one launch per slot each
+    assert launches["pair_lse_partials"] == 2 * 4 * N_SUGGESTS, launches
+    assert launches["pair_score_batched"] == 0 and launches["fused_suggest"] == 0, launches
+
+    # one steady suggest each way under torch.profiler, on the same history
+    labels = {name for _, name in stages}
+    traced = {}
+    domain = T.Domain(bench_objective, bench_space(T.hp))
+    for key, m in (("no_mesh", None), ("2x2", mesh)):
+        def one(m=m):
+            T.tpe.suggest([len(trials.trials)], domain, trials, 5, n_EI_candidates=N_CAND, mesh=m)
+
+        with stage_timers(stages):
+            one()  # warm: this mesh's history mirror of these trials
+            traced[key] = profile_suggest(one, labels)
+        # the same suggest's host ms with the garbage collector on and off
+        for mode in ("gc_on", "gc_off"):
+            ms = []
+            gc.collect()
+            if mode == "gc_off":
+                gc.disable()
+            try:
+                for _ in range(3):
+                    t0 = time.perf_counter()
+                    one()
+                    torch.cuda.synchronize()
+                    ms.append((time.perf_counter() - t0) * 1e3)
+            finally:
+                gc.enable()
+            traced[key][f"suggest_ms_{mode}"] = float(np.median(ms))
+    emit("mesh", part="suggest_trace", n_history=len(trials.trials), **traced)
+
+    # one-rank NCCL: the collectives the sp combine uses across processes
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    assert distributed.initialize(coordinator_address=f"127.0.0.1:{port}", num_processes=1,
+                                  process_id=0, timeout=datetime.timedelta(seconds=120))
+    try:
+        backend = torch.distributed.get_backend()
+        x = torch.tensor([1.5, -2.0, 3.25], device="cuda")
+        mx, sm = x.clone(), x.clone()
+        torch.distributed.all_reduce(mx, torch.distributed.ReduceOp.MAX)
+        torch.distributed.all_reduce(sm, torch.distributed.ReduceOp.SUM)
+        torch.cuda.synchronize()
+        gm = distributed.global_mesh()
+        ok = (bool(torch.equal(mx, x)) and bool(torch.equal(sm, x)) and gm.grid is None
+              and gm.ranks == (0,) and distributed.is_coordinator())
+    finally:
+        torch.distributed.destroy_process_group()
+    emit("mesh", part="nccl_one_rank", backend=backend, all_reduce_ok=ok,
+         global_mesh=repr(gm), port=port)
+    assert backend == "nccl" and ok
+
+    # TorchTrials' device plane split over dp=2 of a virtual 2x1 mesh
+    from hyperopt_tpu_torch.models import domains
+
+    d = domains.get("branin")
+    tt = T.TorchTrials(parallelism=8, device_fn=branin_torch, mesh=virtual_mesh((2, 1)))
+    T.fmin(d.fn, d.space, algo=partial(T.rand.suggest), max_evals=64, trials=tt,
+           rstate=np.random.default_rng(0), show_progressbar=False)
+    batch = {k: torch.tensor([t["misc"]["vals"][k][0] for t in tt.trials], device="cuda",
+                             dtype=torch.float32) for k in ("x", "y")}
+    plain = torch.func.vmap(branin_torch)(batch).cpu().numpy()
+    got = np.array([t["result"]["loss"] for t in tt.trials])
+    sharded = sharding.make_sharded_batch_eval(virtual_mesh((2, 1)), branin_torch)(batch)
+    equal_direct = bool(torch.equal(sharded.cpu(), torch.from_numpy(plain)))
+    worst = float(np.max(np.abs(got - plain) / np.abs(plain)))
+    emit("mesh", part="torch_trials", mesh="2x1", n_evals=len(tt.trials),
+         device_batches=tt.device_batches, host_trials=tt.host_trials,
+         worst_rel_vs_unsharded=worst, batch_eval_bitwise_equal=equal_direct)
+    assert len(tt.trials) == 64 and tt.device_batches > 0 and tt.host_trials == 0
+    assert worst <= 1e-6 and equal_direct, (worst, equal_direct)
+    emit("mesh", part="seconds", seconds=time.perf_counter() - t_phase)
+    return err, launches["pair_lse_partials"]
+
+
 def device_ms_per_launch(fn, names, iters=50):
     """Device time per call of ``fn`` of the kernels whose names hold one of
     ``names``, by ``torch.profiler``: the kernels alone, without the
@@ -2829,9 +3256,39 @@ def phase_timing(errs, launches, card):
         launches=launches["pair_score_single"], max_abs_err=errs["pair_score_single"],
         plain_ms=cuda_ms(lambda: pair_score(z, params, kb), 10),
         library_ms=cuda_ms(lambda: library_scores(z, params, kb), 10)))
+    # the partials launch at the shard shape of the 2x2 mesh's main path:
+    # C/dp candidates against ceil(Kb/sp) + ceil(Ka/sp) components
+    from hyperopt_tpu_torch.ops.pair_kernel import pair_lse_partials
+    from hyperopt_tpu_torch.ops.score import pair_lse_partials as plain_partials
+    from hyperopt_tpu_torch.parallel.sharding import _region_shards
+
+    s = MAIN_SHAPE
+    z, params = pair_case(seed=6, **s)
+    zs = z[:, :s["C"] // 2].contiguous()
+    shards, wb = _region_shards(params, s["kb"], 2)
+    ps = shards[0]
+    L, C, K = zs.shape[0], zs.shape[1], ps.shape[2]
+
+    def library_partials():
+        feats = torch.stack([zs * zs, zs, torch.ones_like(zs)], dim=-1)
+        comp = torch.matmul(feats, ps)
+        return torch.stack([torch.logsumexp(comp[..., :wb], -1),
+                            torch.logsumexp(comp[..., wb:], -1)])
+
+    rows.append(row(
+        "pair_lse_partials", lambda: pair_lse_partials(zs, ps, wb), ["pair_score_kernel"],
+        L * C * K, 4 * (3 * L * C + 3 * L * K),
+        source="hyperopt_tpu_torch/csrc/pair_score.cu (partials launch)",
+        replaces="hyperopt_tpu/ops/pallas_gmm.py:127",
+        launches=launches["pair_lse_partials"], max_abs_err=errs["pair_lse_partials"],
+        shard_shape={"L": L, "C": C, "K": K, "kb": wb},
+        ms_full_shape=cuda_ms(lambda: pair_lse_partials(z, params, s["kb"]), iters=200),
+        plain_ms=cuda_ms(lambda: plain_partials(zs, ps, wb), 10),
+        library_ms=cuda_ms(library_partials, 10)))
     for r in rows:
         emit("timing", kernel=r["name"], **{k: r[k] for k in (
             "ms", "device_ms", "device_ms_by_kernel", "ms_draw", "device_ms_draw", "plain_ms",
+            "ms_full_shape", "shard_shape",
             "unfused_ms",
             "library_ms", "bound_ms", "bound_by", "bound_unit", "f32_bound_ms",
             "issue_sfu_bound_ms", "sfu_bound_ms", "share_of_bound", "share_of_sfu_bound")
@@ -2873,11 +3330,12 @@ def main():
     os.environ["HYPEROPT_TPU_FUSED_PROBE"] = "0"
     import hyperopt_tpu_torch as T
     from hyperopt_tpu_torch.ops.fused_kernel import fused_suggest
-    from hyperopt_tpu_torch.ops.pair_kernel import pair_score_batched, pair_score_single
+    from hyperopt_tpu_torch.ops.pair_kernel import (pair_lse_partials, pair_score_batched,
+                                                    pair_score_single)
 
     assert "jax" not in sys.modules and not any(
         m == "hyperopt_tpu" or m.startswith("hyperopt_tpu.") for m in sys.modules)
-    counters = [pair_score_batched, fused_suggest, pair_score_single]
+    counters = [pair_score_batched, fused_suggest, pair_score_single, pair_lse_partials]
     smi, card = phase_card()
     phase_build()
     errs = {"pair_score_batched": phase_kernel_vs_plain(),
@@ -2885,6 +3343,7 @@ def main():
             "pair_score_single": single_label_err()}
     phase_suggest_vs_cpu(T)
     launches, trials, steady_ms, stats = phase_main_path(T, counters)
+    process_state("after_main_path")
     fused_runs = phase_fused_main_path(T, counters, trials)
     phase_search_health(stats, fused_runs)
     phase_profile(T, trials, steady_ms, "pallas")
@@ -2905,7 +3364,9 @@ def main():
     phase_profiler(T, counters, trials)
     service_launches = phase_service(T, counters)
     replica_launches = phase_replica_failover(T)
+    errs["pair_lse_partials"], mesh_launches = phase_mesh(T, counters)
     launches = {**launches, "fused_suggest": fused_runs["0"][0]["fused_suggest"],
+                "pair_lse_partials": mesh_launches,
                 "fused_suggest_draw": fused_runs["1"][0]["fused_suggest"],
                 "pair_score_single": single["pair_score_single"]}
     kernels = phase_timing(errs, launches, card)

@@ -39,6 +39,7 @@ from functools import partial
 
 import numpy as np
 
+from ..parallel.sharding import resolve_mesh_device
 from ..pyll_utils import expr_to_config
 from . import rand, tpe
 
@@ -520,14 +521,10 @@ def suggest(
     """ATPE suggest: featurize → meta-params → TPE with parameter locks.
 
     ``device``: where the random-search startup and the TPE step run
-    (None: the CUDA card).  ``mesh`` other than None raises
-    ``NotImplementedError``: the sharded path is not ported yet."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "atpe.suggest(mesh=...) is not ported to hyperopt_tpu_torch yet "
-            "(ROADMAP.md: queue A item 7, parallel/sharding.py); use "
-            "hyperopt_tpu for it"
-        )
+    (None: the CUDA card).  ``mesh``: passed through to TPE
+    (:func:`tpe.suggest`'s ``mesh``), whose scoring it shards; the startup
+    and the TPE step then run on its lead slot."""
+    mesh, device = resolve_mesh_device(mesh, device)
     hist = trials.history
     # same startup gate as tpe.suggest: all inserted non-error trials
     # (reference semantics), plus an empty-OK-history guard
@@ -569,4 +566,5 @@ def suggest(
         param_locks=param_locks or None,
         trial_filter=trial_filter,
         device=device,
+        mesh=mesh,
     )

@@ -26,10 +26,18 @@ optionally fit with in-flight trials assumed to land above the
 batched dispatch of several studies
 (``tpe_device.multi_study_suggest_async``).
 
+``mesh=`` (a :class:`~hyperopt_tpu_torch.parallel.sharding.DeviceMesh`
+or ``"auto"``/``"off"``/``"DPxSP"``) shards the O(candidates × history)
+scoring over several devices (:mod:`..parallel.sharding`): candidates
+over ``dp``, mixture components over ``sp``, each shard's step the
+pair-score kernel's partials launch; the suggestions are those of the
+single-device program at the same seeds, up to near-ties.  A degenerate
+mesh (one device, ``"off"``) is the single-device program bit for bit.
+
 Config is the reference's *partial-as-config* pattern:
 ``functools.partial(tpe.suggest, gamma=0.3, n_EI_candidates=1000)``.
 Every entry point here runs on the CUDA card unless ``device="cpu"`` is
-passed.
+passed (or a mesh whose devices are the CPU).
 """
 
 from __future__ import annotations
@@ -47,6 +55,7 @@ from ..ops import parzen as parzen_ops
 from ..ops.fused_kernel import resolve_fused_draw
 from ..ops.pair_kernel import pair_score_single
 from ..ops.score import PAIR_CHUNK, pair_params, pair_score, resolve_scorer
+from ..parallel.sharding import resolve_mesh_device
 from ..vectorize import branch_activity, idxs_vals_from_batch
 from . import rand
 
@@ -334,6 +343,7 @@ def _suggest_device(
     defer=False,
     pending=None,
     prepare=False,
+    mesh=None,
 ):
     """The production suggest path: device-resident history, one
     label-stacked pass per distribution family, O(k) host↔device traffic
@@ -354,7 +364,13 @@ def _suggest_device(
     computed for the grown count, and when a pending result does land in
     the above set the suggestion equals the post-completion serial one
     exactly.  Incompatible with ``trial_filter``, which indexes the real
-    history.  Reference: ``hyperopt_tpu/algos/tpe.py:619-846``."""
+    history.
+
+    ``mesh`` (a resolved, non-degenerate ``DeviceMesh``; ``device`` is its
+    lead slot): the same path, the history on the lead slot and the
+    scoring sharded over the mesh; the tier is the sharded pair scorer,
+    so neither ``HYPEROPT_TPU_SCORER`` nor the fused probe applies.
+    Reference: ``hyperopt_tpu/algos/tpe.py:619-846``."""
     from . import tpe_device as td
 
     new_ids = list(new_ids)
@@ -364,7 +380,7 @@ def _suggest_device(
 
     if pending and trial_filter is not None:
         raise ValueError("pending speculation is incompatible with trial_filter")
-    dh = td.device_history_for(trials, domain.space, device)
+    dh = td.device_history_for(trials, domain.space, device, mesh=mesh)
     dev = dh.device
     with on_suggest_stream(dev):
         dh.sync(hist)
@@ -393,11 +409,14 @@ def _suggest_device(
 
         uniforms = _label_uniforms(seed, dh.n_labels, k * n_cand, dev)
         # the tier is resolved once per suggest; only fused programs carry
-        # the in-kernel-draw switch
-        scorer = resolve_scorer(dev)
-        tier = {"scorer": scorer}
-        if scorer == "fused":
-            tier["fused_draw"] = resolve_fused_draw()
+        # the in-kernel-draw switch, only sharded ones the mesh
+        if mesh is not None:
+            tier = {"scorer": "pallas", "mesh": mesh}
+        else:
+            scorer = resolve_scorer(dev)
+            tier = {"scorer": scorer}
+            if scorer == "fused":
+                tier["fused_draw"] = resolve_fused_draw()
         specs = domain.space.specs
 
         # hard locks: value pinned, posterior skipped (activity still derived)
@@ -517,11 +536,22 @@ def suggest(
     param_locks=None,
     trial_filter=None,
     device=None,
+    mesh=None,
 ):
     """TPE suggest: draw candidates from l(x), rank by log l(x) − log g(x).
 
     ``device``: where the history lives and the suggest runs (None: the
     CUDA card; ``"cpu"`` runs the plain PyTorch versions of the kernels).
+
+    ``mesh``: a ``parallel.sharding.DeviceMesh`` or a spec (``"auto"``,
+    ``"off"``, ``"DPxSP"`` over the local cards), e.g.
+    ``partial(tpe.suggest, mesh="auto", n_EI_candidates=65536)``: the
+    unquantized labels' scoring shards over it (candidates over ``dp``,
+    mixture components over ``sp``) and quantized labels without a bucket
+    grid split their candidates over ``dp``; index labels stay on the lead
+    slot (their component axis is the category count).  The history and
+    every other stage live on the mesh's lead slot, so ``device`` must be
+    None or that device.  A degenerate mesh is the single-device program.
 
     ``param_locks``: optional ``{label: (center, radius)}`` — the ATPE
     "cascade" (reference ``hyperopt/atpe.py`` ~L300-700):
@@ -542,7 +572,7 @@ def suggest(
     return _suggest_impl(
         new_ids, domain, trials, seed, prior_weight, n_startup_jobs,
         n_EI_candidates, gamma, linear_forgetting, param_locks, trial_filter,
-        device, defer=False,
+        device, defer=False, mesh=mesh,
     )
 
 
@@ -561,6 +591,7 @@ def suggest_async(
     trial_filter=None,
     device=None,
     pending=None,
+    mesh=None,
 ):
     """:func:`suggest` launched without waiting: returns a zero-argument
     resolver that yields exactly the docs ``suggest`` would have returned
@@ -577,7 +608,7 @@ def suggest_async(
     return _suggest_impl(
         new_ids, domain, trials, seed, prior_weight, n_startup_jobs,
         n_EI_candidates, gamma, linear_forgetting, param_locks, trial_filter,
-        device, defer=True, pending=pending,
+        device, defer=True, pending=pending, mesh=mesh,
     )
 
 
@@ -595,6 +626,7 @@ def suggest_prepare(
     param_locks=None,
     trial_filter=None,
     device=None,
+    mesh=None,
 ):
     """One TPE suggest's request list, built but not launched.
 
@@ -610,7 +642,7 @@ def suggest_prepare(
     return _suggest_impl(
         new_ids, domain, trials, seed, prior_weight, n_startup_jobs,
         n_EI_candidates, gamma, linear_forgetting, param_locks, trial_filter,
-        device, defer=False, prepare=True,
+        device, defer=False, prepare=True, mesh=mesh,
     )
 
 
@@ -701,9 +733,10 @@ def plain_label_scores(new_ids, domain, trials, seed, label,
 def _suggest_impl(
     new_ids, domain, trials, seed, prior_weight, n_startup_jobs,
     n_EI_candidates, gamma, linear_forgetting, param_locks, trial_filter,
-    device, defer, pending=None, prepare=False,
+    device, defer, pending=None, prepare=False, mesh=None,
 ):
-    dev = resolve_device(device)
+    # a degenerate mesh resolves to None here, before anything is keyed
+    mesh, dev = resolve_mesh_device(mesh, device)
     hist = trials.history
     # Startup gate on ALL inserted non-error trials (reference semantics:
     # ``len(trials.trials)``), not completed-OK count; random suggest also
@@ -727,7 +760,7 @@ def _suggest_impl(
     return _suggest_device(
         new_ids, domain, trials, hist, seed, prior_weight, n_EI_candidates,
         gamma, linear_forgetting, param_locks, trial_filter, dev,
-        defer=defer, pending=pending, prepare=prepare,
+        defer=defer, pending=pending, prepare=prepare, mesh=mesh,
     )
 
 

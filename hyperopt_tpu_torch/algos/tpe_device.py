@@ -36,6 +36,15 @@ relies on.
 Random draws enter the family cores as uniform streams ``[L, 2, C]``
 (component pick, value draw), drawn by the caller from per-label
 generators; a test can hand in the reference's own streams instead.
+
+Under a :class:`~hyperopt_tpu_torch.parallel.sharding.DeviceMesh` (the
+``mesh`` static of a continuous family) the history lives on the mesh's
+lead slot and every stage runs there but the scoring: the pair score fans
+out over the mesh's slots (``sharding.make_sharded_pair_score_batched``:
+candidates over ``dp``, each region's components over ``sp``), quantized
+labels without a bucket grid split their candidates over ``dp``, and the
+argmax and the search-health reductions read the gathered scores on the
+lead slot.  Reference: ``hyperopt_tpu/algos/tpe_device.py:870-910``.
 """
 
 from __future__ import annotations
@@ -57,6 +66,7 @@ from ..ops import gmm as gmm_ops
 from ..ops import parzen as parzen_ops
 from ..ops.pair_kernel import pair_score_batched
 from ..ops.score import pair_params, pair_score
+from ..parallel import sharding
 from ..resilience.device import mark_device_error
 
 EPS = 1e-12
@@ -180,13 +190,16 @@ def _on_stream(method):
 class DeviceHistory:
     """Device-resident struct-of-arrays mirror of one Trials history.
 
-    Cached per (trials, space, device) via :func:`device_history_for`;
+    Cached per (trials, space, device, mesh) via :func:`device_history_for`;
     ``sync`` detects append-only growth (the steady state) by prefix
-    comparison and uploads only the delta.
+    comparison and uploads only the delta.  Under a ``mesh`` the buffers
+    live on its lead slot (``DeviceMesh.lead_device``), where every stage
+    but the sharded scoring runs.
     """
 
-    def __init__(self, specs, device=None):
-        self.device = resolve_device(device)
+    def __init__(self, specs, device=None, mesh=None):
+        self.mesh = mesh
+        self.device = mesh.lead_device if mesh is not None else resolve_device(device)
         fams = {}
         for ki, (label, spec) in enumerate(specs.items()):
             if spec.dist in CONTINUOUS:
@@ -455,10 +468,12 @@ class DeviceHistory:
 _cache = weakref.WeakKeyDictionary()
 
 
-def device_history_for(trials, space, device):
-    """The (trials, space, device)-scoped DeviceHistory, weak-keyed on the
-    trials/space sides (no id()-reuse hazards, no unbounded growth)."""
-    device = resolve_device(device)
+def device_history_for(trials, space, device, mesh=None):
+    """The (trials, space, device, mesh)-scoped DeviceHistory, weak-keyed
+    on the trials/space sides (no id()-reuse hazards, no unbounded
+    growth).  ``mesh=None`` and each distinct mesh get their own mirror;
+    under a mesh ``device`` is its lead slot's."""
+    device = mesh.lead_device if mesh is not None else resolve_device(device)
     per_trials = _cache.get(trials)
     if per_trials is None:
         per_trials = weakref.WeakKeyDictionary()
@@ -467,17 +482,18 @@ def device_history_for(trials, space, device):
     if per_space is None:
         per_space = {}
         per_trials[space] = per_space
-    dh = per_space.get(device)
+    dh = per_space.get((device, mesh))
     if dh is None:
-        dh = DeviceHistory(space.specs, device=device)
-        per_space[device] = dh
+        dh = DeviceHistory(space.specs, device=device, mesh=mesh)
+        per_space[(device, mesh)] = dh
     return dh
 
 
 def reset_device_state():
     """Drop every piece of device-resident suggest state this plane
-    holds: the ``DeviceHistory`` mirrors (per trials/space/device), the
-    per-card suggest streams, and the caching allocator's free blocks.
+    holds: the ``DeviceHistory`` mirrors (per trials/space/device/mesh),
+    the per-card suggest streams and the mesh slots' streams, and the
+    caching allocator's free blocks.
 
     Called by :class:`hyperopt_tpu_torch.resilience.device.DeviceRecovery`
     after a CUDA error.  The host-side ``_TrialsHistory`` remains the
@@ -489,6 +505,7 @@ def reset_device_state():
     _cache.clear()
     _warm_keys.clear()
     drop_suggest_streams()
+    sharding.drop_slot_streams()
     if torch.cuda.is_initialized():
         # raises under a sticky CUDA error; the recovery logs it and
         # counts the retry's failure against its budget
@@ -601,10 +618,17 @@ def _family_suggest_core(
     n_buckets: int = 0,
     scorer: str = "pallas",
     fused_draw: bool = False,
+    mesh=None,
 ):
     """γ-split → pack → Parzen fits → truncated-GMM draw → log l − log g →
     per-id argmax, stacked over the family's L labels.  Returns winning
     values ``[L, k]`` (fit space) and the ``[L, DIAG_COLS]`` row.
+
+    ``mesh`` (a non-degenerate ``DeviceMesh``, whose lead slot holds the
+    inputs): the unquantized pair score fans out over it
+    (:func:`_sharded_pair_apply`) and quantized labels without a bucket
+    grid score their candidates split over ``dp``; everything else runs
+    on the lead slot as without a mesh.
 
     ``scorer`` (``ops.score.resolve_scorer``) picks how unquantized labels
     score: ``pallas`` through the pair-score kernel (``pair_score_batched``:
@@ -650,15 +674,26 @@ def _family_suggest_core(
             idx = (torch.round(cands / qe[:, None]) - j0[:, None]).clamp(0, n_buckets - 1)
             score = s.gather(1, idx.to(torch.int64))
         elif quantized or scorer == "exact":
-            score = gmm_ops.gmm_lpdf(cands, wb, mb, sb, lo, hi, qq, log_scale, quantized) \
-                - gmm_ops.gmm_lpdf(cands, wa, ma, sa, lo, hi, qq, log_scale, quantized)
+            def lpdf_diff(x, wb, mb, sb, wa, ma, sa, lo, hi, qq):
+                return gmm_ops.gmm_lpdf(x, wb, mb, sb, lo, hi, qq, log_scale, quantized) \
+                    - gmm_ops.gmm_lpdf(x, wa, ma, sa, lo, hi, qq, log_scale, quantized)
+
+            mix = (wb, mb, sb, wa, ma, sa, lo, hi, qq)
+            if mesh is not None:
+                # per-candidate work: the dp split changes no value
+                score = sharding.dp_apply(mesh, lpdf_diff, cands, cands.device, mix)
+            else:
+                score = lpdf_diff(cands, *mix)
         else:
             # p_accept constants and the lognormal Jacobian are constant or
             # cancel in l−g, so the pair score keeps the argmax
             z = torch.log(cands.clamp(min=EPS)) if log_scale else cands
             params = pair_params(wb, mb, sb, wa, ma, sa)  # [L, 3, Kb+Ka]
-            scorer_fn = pair_score if scorer == "xla" else pair_score_batched
-            score = scorer_fn(z.contiguous(), params.contiguous(), wb.shape[1])
+            if mesh is not None:
+                score = _sharded_pair_apply(mesh, z, params, wb.shape[1])
+            else:
+                scorer_fn = pair_score if scorer == "xla" else pair_score_batched
+                score = scorer_fn(z.contiguous(), params.contiguous(), wb.shape[1])
         ei_max, ei_lme, ei_mass = _ei_diag(score)
         win = _argmax_winners(cands, score, k, n_cand)
     sig_min, sig_mean, sig_floor = _sigma_diag(wb, sb, nbs, ps)
@@ -668,6 +703,17 @@ def _family_suggest_core(
         dim=1,
     )  # [L, DIAG_COLS]
     return win, diag
+
+
+def _sharded_pair_apply(mesh, z, params, k_below):
+    """The pair score ``[L, C]`` over ``mesh``: each slot's partials launch
+    (``ops.pair_kernel.pair_lse_partials``) on its ``dp`` block of
+    candidates and ``sp`` block of each region, combined on the lead slot
+    (``sharding.make_sharded_pair_score_batched``, which pads C and both
+    regions itself).  The fit and the draw upstream ran once, on the lead
+    slot, so every slot scores the single-device program's own candidates
+    against its own mixtures.  Reference: ``tpe_device.py:870-910``."""
+    return sharding.make_sharded_pair_score_batched(mesh)(z, params, k_below)
 
 
 def _fused_winners(u1, u2, rows, params, k_below, *, k, n_cand, log_scale):
@@ -897,6 +943,17 @@ def multi_family_suggest_async(requests):
                 if done_cbs is None:
                     done_cbs = []
                 done_cbs.append(cb)
+    # one dispatch has one mesh: studies prepared under different meshes
+    # are batched per mesh (the service refuses such a study at create)
+    meshes = []
+    for _, _, st in requests:
+        m = st.get("mesh")
+        if m is not None and m not in meshes:
+            meshes.append(m)
+    if len(meshes) > 1:
+        raise ValueError(
+            f"cannot fuse requests with {len(meshes)} different device meshes "
+            f"into one dispatch; batch per mesh instead")
     dev = requests[0][1][1].device  # every request's obs lies on one device
     timed = done_cbs is not None and dev.type == "cuda"
     n_loaded = kernel_build.n_loaded()

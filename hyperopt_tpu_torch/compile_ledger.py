@@ -98,21 +98,29 @@ def fingerprint() -> dict:
 
 
 # The serving topology this process dispatches under: the device type,
-# the local card count and the mesh label ("off": the single-device
-# dispatch, the only one ported).  Set once by the service at startup.
+# the device count and the mesh shape ("off": the single-device dispatch).
+# Set once by the service at startup.
 _topology_lock = threading.Lock()
-_topology = {"backend": "cuda", "mesh": "off"}  # guarded-by: _topology_lock
+_topology = {"backend": "cuda", "mesh": "off", "device_count": None}  # guarded-by: _topology_lock
 
 
-def set_topology(mesh="off", device=None) -> dict:
-    """Register the serving mesh label and device in the process
-    fingerprint; returns the resulting topology dict."""
+def set_topology(mesh=None, device=None) -> dict:
+    """Register the serving mesh and device in the process fingerprint;
+    returns the resulting topology dict.  ``mesh``: a ``DeviceMesh`` (its
+    :meth:`~hyperopt_tpu_torch.parallel.sharding.DeviceMesh.topology`:
+    backend, slot count, shape), or a label (None/``"off"``: the single
+    device, whose count is the local card count)."""
     import torch
 
-    backend = torch.device("cuda" if device is None else device).type
+    from .parallel.sharding import DeviceMesh
+
+    if isinstance(mesh, DeviceMesh):
+        topo = mesh.topology()
+    else:
+        topo = {"backend": torch.device("cuda" if device is None else device).type,
+                "mesh": "off" if mesh is None else str(mesh), "device_count": None}
     with _topology_lock:
-        _topology["mesh"] = "off" if mesh is None else str(mesh)
-        _topology["backend"] = backend
+        _topology.update(topo)
     return current_topology()
 
 
@@ -120,10 +128,12 @@ def current_topology() -> dict:
     import torch
 
     with _topology_lock:
-        backend, mesh = _topology["backend"], _topology["mesh"]
-    # device_count asks the driver without creating a CUDA context
-    n = torch.cuda.device_count() if backend == "cuda" else 1
-    return {"backend": backend, "device_count": int(n), "mesh": mesh}
+        topo = dict(_topology)
+    n = topo["device_count"]
+    if n is None:
+        # device_count creates no CUDA context
+        n = torch.cuda.device_count() if topo["backend"] == "cuda" else 1
+    return {"backend": topo["backend"], "device_count": int(n), "mesh": topo["mesh"]}
 
 
 def cache_hit_count() -> int:
@@ -163,7 +173,18 @@ def enable_persistent_cache(cache_dir) -> bool:
 # ---------------------------------------------------------------------
 
 
+MESH_TOKEN = "__mesh__"
+
+
 def _jsonable_default(obj):
+    """JSON fallback for the one non-scalar static: a ``DeviceMesh``
+    serializes as its shape token (``{"__mesh__": "DPxSP"}``); replay
+    substitutes the process's live mesh when, and only when, the shape
+    matches."""
+    from .parallel.sharding import DeviceMesh, mesh_shape_str
+
+    if isinstance(obj, DeviceMesh):
+        return {MESH_TOKEN: mesh_shape_str(obj)}
     raise TypeError(
         f"unserializable static {type(obj).__name__!r} in compile record"
     )
@@ -171,7 +192,8 @@ def _jsonable_default(obj):
 
 def sig_shapes_jsonable(sig, shapes):
     """The JSON form of one ``(sig, shapes)`` pair.  Tuples become lists;
-    every leaf is a scalar — the round trip back through
+    every leaf is a scalar (a mesh static becomes its shape token) — the
+    round trip back through
     :func:`requests_from_record` rebuilds value-equal statics, and zero
     tensors at the recorded shapes rebuild the program key."""
     return json.loads(json.dumps([sig, shapes], default=_jsonable_default))
@@ -191,27 +213,41 @@ def replay_key(sig, shapes) -> str:
 _SCALARS = {"py:int": 0, "py:float": 0.0, "py:bool": False}
 
 
-def requests_from_record(rec, device=None):
+def requests_from_record(rec, device=None, mesh=None):
     """Rebuild the ``(kind, args, statics)`` request list of a ledger
     record on ``device`` (None: the card) — zero-filled tensors at the
     recorded shapes and dtypes, zero scalars, which reproduce the program
-    key the original dispatch had.  Returns None when the record is not
-    replayable (no sig/shapes, a sharded program's ``mesh`` static, or an
-    unknown dtype)."""
+    key the original dispatch had.
+
+    ``mesh``: the process's live serving mesh (any form
+    ``sharding.resolve_mesh`` takes).  A sharded program's record carries
+    the mesh's shape token; replay substitutes the live mesh when the
+    shapes match (the tensors then lie on its lead slot), so warmup warms
+    the sharded grid.  Returns None when the record is not replayable (no
+    sig/shapes, a mesh token the live topology cannot satisfy, a mesh
+    static of another encoding, or an unknown dtype).  Reference:
+    ``hyperopt_tpu/compile_ledger.py:239-280``."""
     import torch
 
     from .device import resolve_device
+    from .parallel.sharding import mesh_shape_str, resolve_mesh
 
     sig = rec.get("sig")
     shapes = rec.get("shapes")
     if not sig or not shapes or len(sig) != len(shapes):
         return None
-    dev = resolve_device(device)
+    live = resolve_mesh(mesh) if mesh is not None else None
+    dev = live.lead_device if live is not None else resolve_device(device)
     requests = []
     for (kind, st_items), fam_shapes in zip(sig, shapes):
         statics = {str(k): _static_value(v) for k, v in st_items}
         if "mesh" in statics:
-            return None  # a sharded program: none is ported to replay
+            token = statics["mesh"]
+            if not (isinstance(token, dict) and MESH_TOKEN in token):
+                return None  # another encoding
+            if live is None or mesh_shape_str(live) != token[MESH_TOKEN]:
+                return None  # a sharded program, its topology absent
+            statics["mesh"] = live
         args = []
         for shape, dtype in fam_shapes:
             if dtype in _SCALARS:
@@ -581,13 +617,15 @@ class WarmupDriver:
     # lock-order: _lock  (never held across a dispatch or a study lock)
     def __init__(self, ledger: CompileLedger = None, studies=(),
                  device_recovery=None, enabled=True, device=None,
-                 runner=None):
+                 runner=None, mesh=None):
         self.ledger = ledger
         self._studies = list(studies)
         self.device_recovery = device_recovery
         self.enabled = bool(enabled)
-        # the device the replayed programs run on
+        # the device the replayed programs run on, and the serving mesh a
+        # sharded program's record replays onto
         self.device = device
+        self.mesh = mesh
         self._runner = runner
         self._lock = threading.Lock()
         self._items = []  # guarded-by: _lock
@@ -641,7 +679,7 @@ class WarmupDriver:
                     rec.get("replay_key"), "ledger",
                     est_s=float(rec.get("duration_s") or 0.0) or None,
                 )
-                requests = requests_from_record(rec, device=self.device)
+                requests = requests_from_record(rec, device=self.device, mesh=self.mesh)
                 if requests is None:
                     item.state = STATE_SKIPPED
                     item.detail = "record not replayable"

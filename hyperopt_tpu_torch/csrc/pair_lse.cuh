@@ -258,12 +258,20 @@ __device__ __forceinline__ void begin_tiles(const float* __restrict__ p, int K, 
 // started.  Every lane gets every score.  The block's warps meet at no
 // barrier: each waits only for its tiles to land, and a refill (K beyond
 // the ring) waits for every warp to be done with the tile STAGES/2 back.
-template <int CPW>
-__device__ __forceinline__ void pair_scores(const float* __restrict__ p, int K, int k_below,
-                                            const float (&z)[CPW], float (&score)[CPW],
-                                            float* __restrict__ ring, RingBarriers& bar,
-                                            int lane) {
-  float f0[CPW], f1[CPW], m[CPW], s[CPW], below[CPW];
+//
+// PARTIALS (pair_score.cu's partials launch, one mesh shard's step): at
+// the end of each region its logsumexp is kept as it is, below[c] for the
+// first region and score[c] for the second, in place of their difference.
+// The loop and the merges are the same instructions either way, so each
+// region's logsumexp has the same bits in both modes and a score is
+// below[c] - score[c] of the partials launch, bit for bit.
+template <int CPW, bool PARTIALS = false>
+__device__ __forceinline__ void pair_region_lses(const float* __restrict__ p, int K,
+                                                 int k_below, const float (&z)[CPW],
+                                                 float (&below)[CPW], float (&score)[CPW],
+                                                 float* __restrict__ ring, RingBarriers& bar,
+                                                 int lane) {
+  float f0[CPW], f1[CPW], m[CPW], s[CPW];
 #pragma unroll
   for (int c = 0; c < CPW; ++c) {
     f0[c] = z[c] * z[c];
@@ -292,13 +300,22 @@ __device__ __forceinline__ void pair_scores(const float* __restrict__ p, int K, 
         if (g == tl.nb - 1) {
           below[c] = lse[c];
         } else {
-          score[c] = below[c] - lse[c];
+          score[c] = PARTIALS ? lse[c] : below[c] - lse[c];
         }
         m[c] = NEG_BIG;
         s[c] = 0.0f;
       }
     }
   }
+}
+
+template <int CPW>
+__device__ __forceinline__ void pair_scores(const float* __restrict__ p, int K, int k_below,
+                                            const float (&z)[CPW], float (&score)[CPW],
+                                            float* __restrict__ ring, RingBarriers& bar,
+                                            int lane) {
+  float below[CPW];
+  pair_region_lses<CPW, false>(p, K, k_below, z, below, score, ring, bar, lane);
 }
 
 }  // namespace pair_lse

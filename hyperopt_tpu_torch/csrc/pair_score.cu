@@ -40,6 +40,12 @@
 // mass instead of NaN.  Ragged edges of C and of both regions of K are
 // handled here; nothing is padded in device memory.
 //
+// The partials launch (pair_lse_partials_launch) is one mesh shard's step
+// (parallel/sharding.py, the counterpart of the reference's shard_map
+// scorer, hyperopt_tpu/parallel/sharding.py:345): the same loop, with each
+// region's logsumexp written to out[2, L, C] in place of their difference,
+// so shards of the component axis can be combined by a max and a sum.
+//
 // Plain C interface for ctypes: each launch function returns the
 // cudaError_t of cudaGetLastError() after the launch.  It launches on the
 // stream it is given, allocates nothing and does not synchronise.
@@ -52,7 +58,9 @@ namespace {
 
 using namespace pair_lse;
 
-template <int CPW>
+// PARTIALS: out is [2, L, C], each region's logsumexp (the per-shard
+// partials of the mesh scorer) in place of their difference ([L, C])
+template <int CPW, bool PARTIALS>
 __global__ void __launch_bounds__(THREADS, 1)
 pair_score_kernel(const float* __restrict__ z, const float* __restrict__ params,
                   float* __restrict__ out, int C, int K, int k_below) {
@@ -65,25 +73,47 @@ pair_score_kernel(const float* __restrict__ z, const float* __restrict__ params,
   const float* zl = z + static_cast<size_t>(l) * C;
   const float* pl = params + static_cast<size_t>(l) * 3 * K;
 
-  float zc[CPW], score[CPW];
+  float zc[CPW], below[CPW], score[CPW];
 #pragma unroll
   for (int c = 0; c < CPW; ++c) zc[c] = (c0 + c < C) ? zl[c0 + c] : 0.0f;
   begin_tiles(pl, K, k_below, ring, bar);  // after the loads of z: not queued behind P's
-  pair_scores<CPW>(pl, K, k_below, zc, score, ring, bar, lane);
+  pair_region_lses<CPW, PARTIALS>(pl, K, k_below, zc, below, score, ring, bar, lane);
+  const size_t row = static_cast<size_t>(l) * C;
+  const size_t region = static_cast<size_t>(gridDim.y) * C;
 #pragma unroll
   for (int c = 0; c < CPW; ++c) {
-    if (lane == c && c0 + c < C) out[static_cast<size_t>(l) * C + c0 + c] = score[c];
+    if (lane == c && c0 + c < C) {
+      if (PARTIALS) {
+        out[row + c0 + c] = below[c];
+        out[region + row + c0 + c] = score[c];
+      } else {
+        out[row + c0 + c] = score[c];
+      }
+    }
   }
 }
 
-template <int CPW>
+template <int CPW, bool PARTIALS>
 void launch(const float* z, const float* params, float* out, int L, int C, int K, int k_below,
             cudaStream_t stream) {
   constexpr int TC = WARPS * CPW;
-  cudaFuncSetAttribute(pair_score_kernel<CPW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       RING_BYTES);
-  pair_score_kernel<CPW><<<dim3((C + TC - 1) / TC, L), THREADS, RING_BYTES, stream>>>(
+  cudaFuncSetAttribute(pair_score_kernel<CPW, PARTIALS>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, RING_BYTES);
+  pair_score_kernel<CPW, PARTIALS><<<dim3((C + TC - 1) / TC, L), THREADS, RING_BYTES, stream>>>(
       z, params, out, C, K, k_below);
+}
+
+template <bool PARTIALS>
+int launch_cpw(const float* z, const float* params, float* out, int L, int C, int K,
+               int k_below, int cpw, cudaStream_t stream) {
+  if (cpw == 8) {
+    launch<8, PARTIALS>(z, params, out, L, C, K, k_below, stream);
+  } else if (cpw == 4) {
+    launch<4, PARTIALS>(z, params, out, L, C, K, k_below, stream);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -92,19 +122,22 @@ void launch(const float* z, const float* params, float* out, int L, int C, int K
 extern "C" int pair_score_batched_launch_cpw(const float* z, const float* params, float* out,
                                              int L, int C, int K, int k_below, int cpw,
                                              void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (cpw == 8) {
-    launch<8>(z, params, out, L, C, K, k_below, st);
-  } else if (cpw == 4) {
-    launch<4>(z, params, out, L, C, K, k_below, st);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_cpw<false>(z, params, out, L, C, K, k_below, cpw,
+                           static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int pair_score_batched_launch(const float* z, const float* params, float* out,
                                          int L, int C, int K, int k_below, void* stream) {
   const int cpw = pick_cpw(L * ((C + WARPS * 8 - 1) / (WARPS * 8)));
   return pair_score_batched_launch_cpw(z, params, out, L, C, K, k_below, cpw, stream);
+}
+
+// One mesh shard's step (parallel/sharding.py): out [2, L, C] holds
+// LSE_{j < Kb} and LSE_{j >= Kb} of each candidate, the same bits as the
+// two regions inside pair_score_batched_launch's scores.
+extern "C" int pair_lse_partials_launch(const float* z, const float* params, float* out, int L,
+                                        int C, int K, int k_below, void* stream) {
+  const int cpw = pick_cpw(L * ((C + WARPS * 8 - 1) / (WARPS * 8)));
+  return launch_cpw<true>(z, params, out, L, C, K, k_below, cpw,
+                          static_cast<cudaStream_t>(stream));
 }

@@ -72,7 +72,7 @@ def _default_max_speculation():
 
 def _check_unported(trials_save_file):
     if str(trials_save_file).endswith(".orbax"):
-        _not_ported("trials_save_file='*.orbax'", "queue A item 6, checkpoint.py")
+        _not_ported("trials_save_file='*.orbax'", "queue A item 8, checkpoint.py")
 
 
 def _atomic_pickle_dump(obj, path, protocol):

@@ -842,8 +842,8 @@ class DeviceStats:
                     self._pct_n[str(ceiling)] += 1
             if live > self._live_bytes_hw:
                 self._live_bytes_hw = live
-            for dev in rec.get("devices") or ():
-                dev = str(dev)
+            # a device repeated over mesh slots counts once per dispatch
+            for dev in dict.fromkeys(str(d) for d in rec.get("devices") or ()):
                 self._busy_by_device[dev] += device_s
                 self._n_by_device[dev] += 1
                 # upper bound per chip: replicated history buffers are

@@ -11,7 +11,9 @@ about it.
 (``[C]``, the counterpart of ``pallas_gmm.py``'s single-label ``_kernel``)
 launch the kernel for CUDA tensors and run the plain version
 (``ops.score.pair_score``) for CPU tensors; nothing else selects between
-them.
+them.  :func:`pair_lse_partials` (``[2, L, C]``, each region's logsumexp)
+is the same loop's partials launch, one mesh shard's step
+(``parallel.sharding``); its plain version is ``ops.score.pair_lse_partials``.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import torch
 from ..resilience.device import mark_device_error
 from . import kernel_build
 from .score import effective_scorer, pair_score
+from .score import pair_lse_partials as plain_pair_lse_partials
 
 _MAX_GRID_Y = 65535
 
@@ -39,8 +42,15 @@ def bind(lib):
     return fn
 
 
-def _lib():
-    return bind(kernel_build.load("pair_score"))
+def bind_partials(lib):
+    """``lib``'s ``pair_lse_partials_launch``, with :func:`bind`'s
+    ctypes signature."""
+    fn = lib.pair_lse_partials_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p]
+    return fn
 
 
 def _check(z, params, k_below):
@@ -65,23 +75,28 @@ def _check(z, params, k_below):
         raise ValueError(f"shape L={L}, C={C}, K={K} is beyond the kernel's int indexing")
 
 
-def _launch(z, params, k_below, fn=None):
+def _launch(z, params, k_below, fn=None, partials=False):
     """Scores ``[L, C]`` from the kernel on the current stream (no
     synchronise; a refused launch raises).  Inputs already checked.
-    ``fn``: another build's launch function (:func:`bind`)."""
+    ``fn``: another build's launch function (:func:`bind`).
+    ``partials``: the partials launch, ``[2, L, C]``."""
     L, C = z.shape
-    out = torch.empty_like(z)
+    out = z.new_empty((2, L, C)) if partials else torch.empty_like(z)
     if C == 0:
         return out
+    if fn is None:
+        lib = kernel_build.load("pair_score")
+        fn = bind_partials(lib) if partials else bind(lib)
     with torch.cuda.device(z.device):
         stream = torch.cuda.current_stream(z.device).cuda_stream
-        err = (fn or _lib())(z.data_ptr(), params.data_ptr(), out.data_ptr(),
-                             L, C, params.shape[2], k_below, stream)
+        err = fn(z.data_ptr(), params.data_ptr(), out.data_ptr(),
+                 L, C, params.shape[2], k_below, stream)
     if err != 0:
         # a device-plane failure whatever its type: the recovery layer
         # (resilience.device) must see the card's own kernel failures
         raise mark_device_error(
-            RuntimeError(f"pair_score kernel launch failed: CUDA error {err}"))
+            RuntimeError(f"pair_score kernel launch failed: CUDA error {err}"
+                         + (" (partials)" if partials else "")))
     return out
 
 
@@ -130,3 +145,27 @@ def pair_score_single(z, params, k_below: int):
 
 
 pair_score_single.launches = 0
+
+
+def pair_lse_partials(z, params, k_below: int):
+    """Each region's logsumexp ``[2, L, C]`` (below, then above) of
+    candidates ``z`` ([L, C], f32) against ``params`` ([L, 3, K], f32)
+    with ``k_below`` = Kb: the pair-score kernel's loop, its two terms
+    written in place of their difference.  One mesh shard's step
+    (``parallel.sharding``); the difference of the two rows is the
+    :func:`pair_score_batched` score bit for bit.
+
+    A CUDA tensor launches the kernel on the current stream (no
+    synchronise; a refused launch raises as a device error).  A CPU tensor
+    runs the plain version (``ops.score.pair_lse_partials``).
+    ``pair_lse_partials.launches`` counts kernel launches."""
+    k_below = int(k_below)
+    _check(z, params, k_below)
+    if effective_scorer(z) == "plain":
+        return plain_pair_lse_partials(z, params, k_below)
+    out = _launch(z, params, k_below, partials=True)
+    pair_lse_partials.launches += 1
+    return out
+
+
+pair_lse_partials.launches = 0

@@ -189,3 +189,28 @@ def pair_score(z, params, k_below: int, chunk: int = PAIR_CHUNK):
         out.append(_logsumexp_rows(comp[..., :k_below])
                    - _logsumexp_rows(comp[..., k_below:]))
     return torch.cat(out, dim=1)
+
+
+def pair_lse_partials(z, params, k_below: int, chunk: int = PAIR_CHUNK):
+    """Each region's logsumexp ``[2, L, C]``: ``LSE_{j<Kb}`` then
+    ``LSE_{j>=Kb}`` of ``F·P`` for candidates ``z`` ([L, C]) against
+    ``params`` ([L, 3, K]), the terms whose difference :func:`pair_score`
+    returns.  The plain version of the partials launch
+    (``ops.pair_kernel.pair_lse_partials``), one mesh shard's step
+    (``parallel.sharding``): a region of only padding columns (logcoef
+    NEG_BIG) gives a partial near NEG_BIG, which adds exactly 0 when the
+    shards are combined.  Chunked over candidates like :func:`pair_score`,
+    and for the same reason refuses TF32 on the card."""
+    if z.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError(
+            "pair_lse_partials needs IEEE f32 matmuls: set "
+            "torch.backends.cuda.matmul.allow_tf32 = False"
+        )
+    out = z.new_empty((2,) + tuple(z.shape))
+    for c0 in range(0, z.shape[1], chunk):
+        zb = z[:, c0:c0 + chunk]
+        feats = torch.stack([zb * zb, zb, torch.ones_like(zb)], dim=-1)
+        comp = torch.matmul(feats, params)  # [L, chunk, Kb+Ka]
+        out[0, :, c0:c0 + chunk] = _logsumexp_rows(comp[..., :k_below])
+        out[1, :, c0:c0 + chunk] = _logsumexp_rows(comp[..., k_below:])
+    return out

@@ -16,7 +16,10 @@ execution planes —
   function of one configuration given as a dict of 0-d tensors; a whole
   claimed batch is evaluated as ONE ``torch.func.vmap(device_fn)`` call on
   the card, on the dispatcher thread's own CUDA stream (never the suggest
-  stream of :mod:`hyperopt_tpu_torch.device`).
+  stream of :mod:`hyperopt_tpu_torch.device`).  With ``mesh=`` the batch
+  is padded to the mesh's ``dp`` extent and split over its ``dp`` rows,
+  one vmapped call per row on its slot's stream
+  (:func:`hyperopt_tpu_torch.parallel.sharding.make_sharded_batch_eval`).
 
 ``fmin`` drives both through the same asynchronous enqueue/poll loop it
 uses for every async backend; the queue is kept ``parallelism`` deep, so a
@@ -48,8 +51,8 @@ from ..base import (
     validate_loss_threshold,
     validate_timeout,
 )
-from ..device import resolve_device
 from ..observability import FaultStats
+from .sharding import resolve_mesh_device
 from ..utils import coarse_utcnow
 
 logger = logging.getLogger(__name__)
@@ -89,25 +92,21 @@ class TorchTrials(Trials):
 
         ``device``: where the device plane evaluates (None: the CUDA card;
         ``"cpu"`` as the tests do).  ``parallelism=None`` is the number of
-        cards (at least 1) on CUDA and 1 on the CPU.  ``mesh`` other than
-        None raises ``NotImplementedError``: the sharded path is not
-        ported yet.
+        cards (at least 1) on CUDA and 1 on the CPU.  ``mesh`` (a
+        ``parallel.sharding.DeviceMesh`` or a spec, as ``tpe.suggest``
+        takes): ``device_fn``'s batches split over its ``dp`` rows, and
+        ``device`` is its lead slot; a degenerate mesh is no mesh.
 
         ``max_speculation``: staleness depth of the pipelined suggest
         engine (see :func:`hyperopt_tpu_torch.fmin.fmin`).  In this backend
         the engine prefetches the next suggestion(s) while the
         dispatcher's workers (or the device batch) evaluate."""
         super().__init__(exp_key=exp_key, refresh=refresh)
-        if mesh is not None:
-            raise NotImplementedError(
-                "TorchTrials(mesh=...) is not ported to hyperopt_tpu_torch yet "
-                "(ROADMAP.md: queue A item 7, parallel/sharding.py); use "
-                "hyperopt_tpu's JaxTrials for it"
-            )
+        self.mesh, device = resolve_mesh_device(mesh, device)
         validate_timeout(timeout)
         validate_timeout(trial_timeout)
         validate_loss_threshold(loss_threshold)
-        self.device = resolve_device(device)
+        self.device = device
         if parallelism is None:
             parallelism = (max(1, torch.cuda.device_count())
                            if self.device.type == "cuda" else 1)
@@ -172,6 +171,7 @@ class TorchTrials(Trials):
             trial_timeout=self.trial_timeout,
             device_fn=self.device_fn,
             device=self.device,
+            mesh=self.mesh,
             retry_policy=retry_policy,
             fault_stats=fault_stats,
         )
@@ -229,6 +229,7 @@ class _TorchFMinState:
         device=None,
         retry_policy=None,
         fault_stats=None,
+        mesh=None,
     ):
         self.trials = trials
         self.domain = Domain(fn, space)
@@ -239,9 +240,15 @@ class _TorchFMinState:
         self.retry_policy = retry_policy
         self.fault_stats = fault_stats
         self.device = device
+        self.mesh = mesh
         self._device_eval = None
         if device_fn is not None:
-            self._device_eval = torch.func.vmap(device_fn)
+            if mesh is not None:
+                from .sharding import make_sharded_batch_eval
+
+                self._device_eval = make_sharded_batch_eval(mesh, device_fn)
+            else:
+                self._device_eval = torch.func.vmap(device_fn)
         self._stop = threading.Event()
         self._thread = None
         self._pool = None
@@ -375,7 +382,9 @@ class _TorchFMinState:
     def _run_batch_on_device(self, trials_batch):
         """One vmapped call of ``device_fn`` over the batch: a ``[B]``
         tensor per label on ``device`` (int64 for integer-valued labels,
-        float32 otherwise), the losses read back once."""
+        float32 otherwise), the losses read back once.  Under a mesh the
+        batch is padded to a multiple of its ``dp`` extent with copies of
+        the last configuration, whose losses are dropped."""
         specs = [spec_from_misc(t["misc"]) for t in trials_batch]
         labels = sorted({k for s in specs for k in s})
         if any(set(s) != set(labels) for s in specs):
@@ -385,16 +394,19 @@ class _TorchFMinState:
             return
         self.trials.device_batches += 1
         space_specs = self.domain.space.specs
+        b = len(specs)
+        dp = self.mesh.dp if self.mesh is not None else 1
+        padded = specs + [specs[-1]] * (-b % dp)
         try:
             batch = {
                 k: torch.tensor(
-                    np.asarray([s[k] for s in specs]),
+                    np.asarray([s[k] for s in padded]),
                     dtype=(torch.int64 if space_specs[k].is_integer else torch.float32),
                     device=self.device,
                 )
                 for k in labels
             }
-            losses = self._device_eval(batch).cpu().numpy()
+            losses = self._device_eval(batch).cpu().numpy()[:b]
         except Exception as e:
             logger.error("device batch failed: %s", e)
             with self._mutate_lock:

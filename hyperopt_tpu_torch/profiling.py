@@ -27,8 +27,13 @@ thousand small launches issued from Python, so that span includes the
 gaps where the card waits for the host's next launch: it is the card's
 wall time for the dispatch, not its busy time, and the roofline share
 computed from it is a lower bound.  On the CPU the figure is the
-reference's host-observed one.  ``dispatch_mesh`` waits for multiple
-cards (ROADMAP.md queue A item 6).
+reference's host-observed one.
+
+A mesh dispatch (:func:`dispatch_mesh`) spans the mesh's devices: its
+record names each distinct device once (:func:`dispatch_devices`; slots
+that share a card are one card), its ceilings are the sum of theirs, and
+the allocator's peak is read per card.  The device span is the lead
+stream's, which waits for every slot's event.
 """
 
 from __future__ import annotations
@@ -241,19 +246,36 @@ def signature_key(requests) -> str:
                 bits.append(f"q{int(statics.get('n_buckets', 0) or 0)}")
             if statics.get("log_scale"):
                 bits.append("log")
+            if statics.get("mesh") is not None:
+                bits.append(f"mesh{statics['mesh'].shape_str}")
         else:
             bits.append(f"u{int(statics.get('upper', 0) or 0)}")
         parts.append(f"{kind}[{','.join(bits)}]")
     return f"capt{capt}:" + "+".join(parts)
 
 
+def dispatch_mesh(requests):
+    """The ``DeviceMesh`` a request list shards over, or None for the
+    single-device dispatch: one dispatch has one mesh, so the first
+    family that carries one names it."""
+    for _, _, statics in requests:
+        mesh = statics.get("mesh")
+        if mesh is not None:
+            return mesh
+    return None
+
+
 def dispatch_devices(requests):
     """Stable labels ('<type>:<index>') of the devices the dispatch of
     ``requests`` runs on: the one device its history lies on (every
-    request of one suggest shares it).  The per-device telemetry split
-    keys on these labels."""
-    dev = requests[0][1][1].device
-    return [f"{dev.type}:{0 if dev.index is None else dev.index}"]
+    request of one suggest shares it), or under a mesh every device of
+    this process's slots, each once, the lead first.  The per-device
+    telemetry split keys on these labels."""
+    devs = [requests[0][1][1].device]
+    mesh = dispatch_mesh(requests)
+    if mesh is not None:
+        devs += [mesh.grid[i][j] for i, j in mesh.local_slots()]
+    return list(dict.fromkeys(f"{d.type}:{d.index or 0}" for d in devs))
 
 
 # ---------------------------------------------------------------------
@@ -342,6 +364,14 @@ class DeviceProfiler:
             if cached is None:
                 devices = dispatch_devices(requests)
                 peaks = self._peaks or platform_peaks(devices[0].split(":")[0])
+                if len(devices) > 1:
+                    # a mesh dispatch spans len(devices) cards: the
+                    # aggregate ceilings scale with them (the ridge point
+                    # does not move)
+                    peaks = dict(peaks)
+                    peaks["peak_tflops"] *= len(devices)
+                    peaks["peak_hbm_GBps"] *= len(devices)
+                    peaks["source"] = f"{peaks['source']}_x{len(devices)}"
                 cached = (analytical_cost(requests), devices, peaks)
                 with self._lock:
                     self._cost_cache[sig_key] = cached

@@ -156,9 +156,10 @@ def make_parser():
     )
     p.add_argument(
         "--mesh", default="off", dest="mesh",
-        help="mesh execution mode: 'off' (default) and 'auto' keep "
-             "the single-card dispatch; a DPxSP shape raises until "
-             "multi-GPU serving is ported (ROADMAP.md, queue A item 6)",
+        help="mesh execution mode: 'off' (default, the single-card "
+             "dispatch), 'auto' (every local card, degenerate on one) or "
+             "an explicit 'DPxSP' shape over all local cards: candidates "
+             "shard over dp, Parzen components over sp",
     )
     p.add_argument(
         "--replica-id", default=None, dest="replica_id",
@@ -320,8 +321,8 @@ def main(argv=None):
     if options.mirror_src_root and options.replica_id is None:
         logger.error("--mirror-src-root requires --replica-id")
         return 2
-    # a mesh over several devices raises NotImplementedError; no card
-    # without --device cpu raises too
+    # a --mesh shape that does not cover the local cards raises
+    # ValueError (exit 2); no card without --device cpu raises too
     try:
         service = _build_service(
             options, tracer, cache_dir, advertise_url
@@ -331,6 +332,9 @@ def main(argv=None):
         logger.error("%s", e)
         return 2
     logger.info("serving on %s", service.device)
+    if service.mesh is not None:
+        logger.info("mesh execution mode: %s over %d local device slot(s)",
+                    service.mesh_label, service.device_mesh.n_devices)
     if service.replica_set is not None:
         logger.info(
             "replica mode: id=%s advertise=%s ttl=%.1fs",

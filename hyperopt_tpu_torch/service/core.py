@@ -57,8 +57,14 @@ processes share one root — on one card, each its own CUDA context —
 each serving the studies whose fencing-token lease it holds; a dead
 replica's studies are adopted by a survivor (claim → fsck-clean →
 recover → ledger pre-warm → serve), the pre-warm queued on the
-adopter's scheduler thread.  Not ported (ROADMAP.md, queue A item 6):
-meshes other than the single-device dispatch.
+adopter's scheduler thread.
+
+Mesh execution mode (``mesh=`` / ``--mesh auto|off|DPxSP``): the service
+owns one :class:`~hyperopt_tpu_torch.parallel.sharding.DeviceMesh`, and
+every study's suggest shards its scoring over it, unless the study's
+``algo_params["mesh"]`` opts out (``"off"``); a study may restate the
+server's mesh but never name another, which is refused at create.  A
+degenerate mesh (one card, ``off``) is the single-device dispatch.
 """
 
 from __future__ import annotations
@@ -290,14 +296,50 @@ def validate_study_id(study_id) -> str:
     return sid
 
 
-def _resolve_algo(algo_name: str, algo_params: dict, device=None):
+def study_mesh(algo_params, service_mesh, device=None):
+    """The mesh one study's suggests shard over: the service's, unless
+    ``algo_params["mesh"]`` opts out (``"off"``: None) or restates it.
+    Any other mesh raises ValueError: the scheduler fuses studies into one
+    dispatch, which has one mesh (the suggest plane refuses two at
+    dispatch; a create refuses the study instead, side-effect free).
+    Spec strings resolve over the service mesh's devices (else the
+    service's device: the local cards, or the CPU).  Reference:
+    ``hyperopt_tpu/service/core.py:1149-1166``."""
+    import torch
+
+    from ..parallel.sharding import DeviceMesh, mesh_shape_str, resolve_mesh
+
+    if "mesh" not in (algo_params or {}):
+        return service_mesh
+    spec = algo_params["mesh"]
+    if isinstance(spec, str):
+        if service_mesh is not None:
+            devices = list(service_mesh.devices)
+        elif device is not None and torch.device(device).type == "cpu":
+            devices = [torch.device("cpu")]
+        else:
+            devices = None
+        spec = DeviceMesh.from_spec(spec, devices=devices)
+    mine = resolve_mesh(spec)
+    if mine is not None and mine != service_mesh:
+        raise ValueError(
+            f"algo_params['mesh'] resolves to {mesh_shape_str(mine)!r} but this "
+            f"server dispatches over {mesh_shape_str(service_mesh)!r}; per-study "
+            f"meshes may only be 'off' or match the server's --mesh"
+        )
+    return mine
+
+
+def _resolve_algo(algo_name: str, algo_params: dict, device=None, mesh=None):
     """(suggest_callable, prepare_callable_or_None) for a named algo.
 
     ``algo_params`` keys are validated against the suggest signature at
     STUDY CREATION — a typo'd keyword must fail the create with a 400,
     not every later suggest in whatever batch it lands in.  ``device``
     is the service's (driver-owned, like the seed): it is bound into an
-    algo that takes one."""
+    algo that takes one.  ``mesh``: the study's resolved mesh
+    (:func:`study_mesh`), bound in place of ``algo_params["mesh"]`` into
+    an algo that takes one."""
     if algo_name not in _ALGOS:
         raise ValueError(
             f"unknown algo {algo_name!r}; expected one of {_ALGOS}"
@@ -326,6 +368,8 @@ def _resolve_algo(algo_name: str, algo_params: dict, device=None):
     bound = dict(algo_params or {})
     if device is not None and "device" in inspect.signature(fn).parameters:
         bound["device"] = device
+    if (mesh is not None or "mesh" in bound) and "mesh" in inspect.signature(fn).parameters:
+        bound["mesh"] = mesh
     algo = partial(fn, **bound) if bound else fn
     prep = getattr(fn, "prepare_variant", None)
     if prep is not None and bound:
@@ -556,7 +600,7 @@ class Study:
 
     def __init__(self, study_id, space, seed, algo_name="tpe",
                  algo_params=None, trials=None, early_stop=None,
-                 device=None):
+                 device=None, mesh=None):
         self.study_id = validate_study_id(study_id)
         self.space = space
         self.seed = int(seed)
@@ -586,8 +630,11 @@ class Study:
         # the SERVICE owns the device: every study's suggest (and its
         # prepare for the batched dispatch) runs there
         self.device = device
+        # ... and its mesh: every study's suggest shards over the one
+        # service mesh unless its algo_params["mesh"] opts out
+        self.mesh = study_mesh(self.algo_params, mesh, device)
         self.algo, self._prepare = _resolve_algo(
-            self.algo_name, self.algo_params, device=device
+            self.algo_name, self.algo_params, device=device, mesh=self.mesh
         )
         self.domain = Domain(_null_objective, space)
         self.trials = trials if trials is not None else Trials()
@@ -1002,10 +1049,11 @@ class StudyRegistry:
 
     # lock-order: _create_lock < _studies_lock
     def __init__(self, root=None, max_studies=DEFAULT_MAX_STUDIES,
-                 device=None, replica_set=None):
+                 device=None, replica_set=None, mesh=None):
         self.root = os.path.abspath(root) if root else None
         self.max_studies = int(max_studies)
         self.device = device  # the service's device, bound into studies
+        self.mesh = mesh  # the service's mesh (or None), likewise
         # multi-replica mode: recovery and create claim per-study
         # ownership leases through this ReplicaSet; a study another
         # live replica holds is skipped at recovery and refused (307)
@@ -1060,6 +1108,7 @@ class StudyRegistry:
             trials=trials,
             early_stop=cfg.get("early_stop"),
             device=self.device,
+            mesh=self.mesh,
         )
         # exactly-once recovery: re-apply journal entries whose
         # effects never landed (crash between journal append and
@@ -1190,6 +1239,9 @@ class StudyRegistry:
             # space's real gate (compiles it, catches duplicate labels
             # etc.); the throwaway instance is cheap next to a create.
             _resolve_algo(str(algo_name), dict(algo_params or {}))
+            # a per-study mesh may opt out or restate the server's: never
+            # another (one dispatch, one mesh)
+            study_mesh(algo_params, self.mesh, self.device)
             if early_stop is not None:
                 # validate the opt-in config side-effect free (400 on
                 # a malformed dict, same as a bad space)
@@ -1220,7 +1272,7 @@ class StudyRegistry:
                     study_id, space, seed,
                     algo_name=algo_name, algo_params=algo_params,
                     trials=trials, early_stop=early_stop,
-                    device=self.device,
+                    device=self.device, mesh=self.mesh,
                 )
                 study.persist_config()
             except Exception:
@@ -1933,21 +1985,6 @@ class SuggestScheduler:
         self._thread.join(timeout=5.0)
 
 
-def resolve_mesh(mesh):
-    """The port's mesh resolver: ``None``, ``"off"`` and ``"auto"`` on one
-    card mean the single-device dispatch (label ``"off"``); anything else
-    raises :class:`NotImplementedError` until multi-GPU serving is ported
-    (ROADMAP.md, queue A item 6).  Reference: ``hyperopt_tpu/service/
-    core.py:1906-1915`` over ``parallel/sharding.py``."""
-    if mesh is None or (isinstance(mesh, str) and mesh in ("off", "auto")):
-        return "off"
-    raise NotImplementedError(
-        f"mesh={mesh!r}: serving over several devices is not ported to "
-        f"hyperopt_tpu_torch yet (ROADMAP.md: queue A item 6, multiple "
-        f"GPUs); use mesh=None, 'off' or 'auto' on one card"
-    )
-
-
 class OptimizationService:
     """The multi-study suggest service: registry + scheduler + stats.
 
@@ -2030,8 +2067,18 @@ class OptimizationService:
                     )
                 )
         self.stats = ServiceStats()
-        # mesh execution mode (--mesh auto|off): one card, one dispatch
-        self.mesh_label = resolve_mesh(mesh)
+        # mesh execution mode (--mesh auto|DPxSP|off): the registry's
+        # studies, the scheduler's label and the ledger's fingerprint
+        # share this mesh.  Spec strings resolve over the local cards (the
+        # CPU for device="cpu"); a one-card "auto" is the degenerate mesh,
+        # the single-device dispatch
+        from ..parallel.sharding import DeviceMesh, mesh_shape_str
+        from ..parallel.sharding import resolve_mesh as resolve_device_mesh
+
+        self.device_mesh = DeviceMesh.from_spec(
+            mesh, devices=[self.device] if self.device.type == "cpu" else None)
+        self.mesh = resolve_device_mesh(self.device_mesh)
+        self.mesh_label = mesh_shape_str(self.mesh)
         # compile plane (hyperopt_tpu_torch.compile_ledger) — wired FIRST
         # so the kernel-library cache covers every build this process
         # pays (the warmup replay included) and the ledger recorder
@@ -2042,7 +2089,8 @@ class OptimizationService:
 
         # stamp the serving topology into the compile-plane fingerprint
         # BEFORE any recording
-        ledger_mod.set_topology(self.mesh_label, device=self.device)
+        ledger_mod.set_topology(self.mesh if self.mesh is not None else "off",
+                                device=self.device)
         self.compile_plane = bool(compile_plane)
         if not self.compile_plane:
             compile_cache_dir = None
@@ -2115,7 +2163,7 @@ class OptimizationService:
             self._run_startup_fsck(root)
         self.registry = StudyRegistry(
             root, max_studies=max_studies, device=self.device,
-            replica_set=self.replica_set,
+            replica_set=self.replica_set, mesh=self.mesh,
         )
         if self.registry.recovery_info["failed_studies"]:
             self._recovery_ok = False
@@ -2173,6 +2221,7 @@ class OptimizationService:
             enabled=bool(warmup),
             device=self.device,
             runner=lambda run: run(),  # inline, inside _startup
+            mesh=self.mesh,
         )
         self.scheduler.call_soon(self._startup)
         # SLO guardrails + flight recorder: the component that WATCHES
@@ -2482,6 +2531,7 @@ class OptimizationService:
                                 enabled=True,
                                 device=self.device,
                                 runner=self.scheduler.call_soon,
+                                mesh=self.mesh,
                             )
                             warm.start()
                             if not warm.wait(TAKEOVER_PREWARM_WAIT_S):
@@ -2864,7 +2914,6 @@ class OptimizationService:
         return self.registry.list()
 
     def service_status(self) -> dict:
-        from .. import compile_ledger as ledger_mod
         from ..observability import build_info
         from ..ops import fused_kernel, pair_kernel
 
@@ -2878,7 +2927,8 @@ class OptimizationService:
             "faults": self.fault_stats.summary(),
             "mesh": {
                 "label": self.mesh_label,
-                "topology": ledger_mod.current_topology(),
+                "topology": (self.device_mesh.topology()
+                             if self.device_mesh is not None else None),
             },
             "device": self.device_stats.summary(),
             # this process's launches of each hand-written kernel (the
@@ -2888,6 +2938,7 @@ class OptimizationService:
                     pair_kernel.pair_score_batched,
                     fused_kernel.fused_suggest,
                     pair_kernel.pair_score_single,
+                    pair_kernel.pair_lse_partials,
                 )
             },
             "store": self.store_stats.summary(),

@@ -235,6 +235,18 @@ def test_locked_branch_driver_keeps_docs_consistent(histories):
 
 
 def test_atpe_mesh_is_not_ported(histories):
+    """The mesh is ported: ``atpe.suggest(mesh=...)`` passes it through to
+    TPE (the same docs as without it on this history: the sharded scores
+    differ in float order only), the suggest runs on the mesh's lead slot,
+    and a mesh spec that is none raises."""
+    from hyperopt_tpu_torch.parallel.sharding import DeviceMesh
+
     _, _, tdom, tt = histories["branin"]
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(ValueError, match="bad mesh spec"):
         T.atpe.suggest([100], tdom, tt, seed=0, device="cpu", mesh=object())
+    plain = T.atpe.suggest([100], tdom, tt, seed=0, device="cpu")
+    mesh = DeviceMesh(["cpu"] * 4, (2, 2))
+    sharded = T.atpe.suggest([100], tdom, tt, seed=0, mesh=mesh)
+    assert sharded[0]["misc"]["vals"] == plain[0]["misc"]["vals"]
+    assert T.atpe.suggest([100], tdom, tt, seed=0, device="cpu", mesh="off")[0][
+        "misc"]["vals"] == plain[0]["misc"]["vals"]

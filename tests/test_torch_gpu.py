@@ -717,3 +717,80 @@ def test_replica_takeover_prewarms_on_card_and_continues_the_trajectory(cuda, mo
         s1.close()
         s2.close()
     assert got == want
+
+
+# -- mesh execution: the partials launch and the sharded scorer on the card --
+
+
+@pytest.mark.parametrize("shape", [
+    dict(L=2, C=8192, kb=33, ka=16385, real_a=10001),  # the main path at 10k history
+    dict(L=2, C=70, kb=1, ka=40),
+    dict(L=3, C=1000, kb=3, ka=1025, real_a=900),  # a below region smaller than sp=4
+])
+def test_pair_lse_partials_on_card(cuda, shape):
+    """The partials launch against its plain version (both regions), its
+    difference equal to the pair-score kernel's scores bit for bit, and the
+    shards of sp = 2 and 4 (Kb < sp in the last case) combined against the
+    unsharded kernel."""
+    from hyperopt_tpu_torch.ops.pair_kernel import pair_lse_partials
+    from hyperopt_tpu_torch.ops.score import pair_lse_partials as plain_partials
+    from hyperopt_tpu_torch.parallel import sharding
+
+    z, params = case(seed=1, **shape)
+    z, params = z.to(cuda), params.to(cuda)
+    kb = shape["kb"]
+    before = pair_lse_partials.launches
+    got = pair_lse_partials(z, params, kb)
+    scores = pair_score_batched(z, params, kb)
+    torch.cuda.synchronize()
+    assert pair_lse_partials.launches == before + 1 and got.shape == (2,) + tuple(z.shape)
+    ref = plain_partials(z, params, kb)
+    ref64 = plain_partials(z.double(), params.double(), kb)
+    for r in range(2):
+        assert_close_to_plain(got[r], ref[r], ref64[r])
+    assert torch.equal((got[0] - got[1]).view(torch.int32), scores.view(torch.int32))
+    ref_s, ref64_s = pair_score(z, params, kb), pair_score(z.double(), params.double(), kb)
+    for sp in (2, 4):
+        shards, wb = sharding._region_shards(params, kb, sp)
+        combined = sharding.lse_combine([pair_lse_partials(z, p, wb) for p in shards])
+        assert_close_to_plain(combined[0] - combined[1], ref_s, ref64_s)
+
+
+def test_virtual_mesh_scores_on_card(cuda):
+    """A virtual 2×2 mesh on one card (each slot its own stream): the
+    sharded scorer's scores against the unsharded kernel's at the main
+    path's shape, one partials launch per slot."""
+    from hyperopt_tpu_torch.ops.pair_kernel import pair_lse_partials
+    from hyperopt_tpu_torch.parallel import sharding
+
+    z, params = case(seed=2, L=2, C=8192, kb=33, ka=16385, real_a=10001)
+    z, params = z.to(cuda), params.to(cuda)
+    mesh = sharding.DeviceMesh([cuda] * 4, shape=(2, 2))
+    streams = {mesh.slot_stream(i, j) for i, j in mesh.local_slots()}
+    assert len(streams) == 4 and torch.cuda.current_stream() not in streams
+    before = pair_lse_partials.launches
+    got = sharding.make_sharded_pair_score_batched(mesh)(z, params, 33)
+    ref = pair_score_batched(z, params, 33)
+    torch.cuda.synchronize()
+    assert pair_lse_partials.launches == before + 4
+    ref_plain, ref64 = pair_score(z, params, 33), pair_score(z.double(), params.double(), 33)
+    assert_close_to_plain(got, ref_plain, ref64)
+    assert_close_to_plain(got, ref, ref64)
+
+
+def test_all_padding_region_adds_exactly_zero_on_card(cuda):
+    """A shard whose below block is only padding: the kernel's partial is
+    near NEG_BIG and the combine has the same bits with and without it."""
+    from hyperopt_tpu_torch.ops.pair_kernel import pair_lse_partials
+    from hyperopt_tpu_torch.parallel import sharding
+
+    z, params = case(seed=3, L=2, C=500, kb=2, ka=300)
+    z, params = z.to(cuda), params.to(cuda)
+    shards, wb = sharding._region_shards(params, 2, 4)
+    parts = [pair_lse_partials(z, s, wb) for s in shards]
+    torch.cuda.synchronize()
+    dead = [i for i, s in enumerate(shards) if bool((s[:, 2, :wb] == -1e30).all())]
+    assert dead == [2, 3] and all(bool((parts[i][0] < -1e29).all()) for i in dead)
+    with_dead = sharding.lse_combine([p[0] for p in parts])
+    without = sharding.lse_combine([p[0] for i, p in enumerate(parts) if i not in dead])
+    assert torch.equal(with_dead.view(torch.int32), without.view(torch.int32))

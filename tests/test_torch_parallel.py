@@ -205,8 +205,15 @@ def test_queue_depth_gives_multi_id_suggests():
 def test_arguments():
     assert TorchTrials(device="cpu").parallelism == 1
     assert TorchTrials(parallelism=1000, device="cpu").parallelism == 128
-    with pytest.raises(NotImplementedError, match="item 7"):
+    # the mesh is ported: a spec that is none raises, a mesh on the CPU's
+    # slots makes the CPU the device plane's lead slot
+    with pytest.raises(ValueError, match="bad mesh spec"):
         TorchTrials(mesh=object(), device="cpu")
+    from hyperopt_tpu_torch.parallel.sharding import DeviceMesh
+
+    meshed = TorchTrials(mesh=DeviceMesh(["cpu"] * 2, (2, 1)))
+    assert meshed.mesh.shape_str == "2x1" and meshed.device.type == "cpu"
+    assert TorchTrials(mesh="auto", device="cpu").mesh is None  # one device
     # retry_policy and fault_stats are ported: the run takes them
     trials = TorchTrials(device="cpu")
     stats = T.observability.FaultStats()
@@ -214,7 +221,7 @@ def test_arguments():
                 max_evals=2, retry_policy=T.resilience.RetryPolicy(), fault_stats=stats,
                 show_progressbar=False)
     assert len(trials) == 2 and stats.counts() == {}
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="item 8"):
         trials.fmin(lambda c: 0.0, {"x": T.hp.uniform("x", 0, 1)}, algo=CPU_RAND,
                     max_evals=3, trials_save_file="run.orbax")
 

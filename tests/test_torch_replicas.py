@@ -1154,7 +1154,8 @@ class TestFailoverMttrRule:
             assert status["replica"]["replica_id"] == "r1"
             # a CPU-device service launches no kernel
             assert status["kernel_launches"] == {
-                "pair_score_batched": 0, "fused_suggest": 0, "pair_score_single": 0}
+                "pair_score_batched": 0, "fused_suggest": 0, "pair_score_single": 0,
+                "pair_lse_partials": 0}
         finally:
             svc.close()
 

@@ -1558,11 +1558,13 @@ def test_service_needs_a_card_or_an_explicit_cpu(tmp_path):
 
 
 def test_replica_and_mesh_options_raise_naming_the_roadmap(tmp_path):
-    """A mesh over several cards waits for a later slice and raises,
-    naming where it is queued; the replica options work (the replica
-    plane is ported: ``tests/test_torch_replicas.py``) and none raises
+    """The mesh is ported (``tests/test_torch_mesh.py``): a shape that
+    does not cover the service's devices raises ValueError, and ``None``,
+    ``off`` and ``auto`` on one device are the single-device dispatch; the
+    replica options work (the replica plane is ported:
+    ``tests/test_torch_replicas.py``) and none raises
     ``NotImplementedError``."""
-    with pytest.raises(NotImplementedError, match="queue A item 6"):
+    with pytest.raises(ValueError, match="covers 2 device"):
         Svc(root=None, mesh="2x1")
     for mesh in (None, "off", "auto"):
         svc = Svc(root=None, mesh=mesh, warmup=False)
