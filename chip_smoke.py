@@ -171,7 +171,28 @@ non-zero without the final line):
     busy ms); a one-rank NCCL group (all-reduce MAX and SUM
     of a CUDA tensor, ``global_mesh``); ``TorchTrials(device_fn=...)`` on
     a virtual 2x1 mesh against the unsharded device plane.
-26. ``timing``: each kernel, its plain version and one PyTorch library call
+26. ``self_lint``: the port's ``run_self_lint()`` on this machine (no
+    JAX): race, durability, static program and protocol passes and the
+    small-scope model check; no error finding; each section's findings
+    and seconds.
+27. ``recompile_audit``: ``audit_tpe_run`` on the card for 200 trials: no
+    PL205 (one compile event per trial-count bucket and family), the
+    events per bucket, one pair-score launch per TPE suggest.
+28. ``checkpoint``: ``fmin(trials_save_file=<dir>/run.orbax)`` from the
+    10,000-trial history for 8 trials, resumed in a fresh ``Trials`` to 16
+    with the same ``rstate`` stream: trial for trial an uninterrupted
+    16-trial run; the newest step's payload truncated, restore falls back
+    to the step before; save ms per step, and at 10,000 trials one step's
+    bytes and save ms beside the pickle path's.
+29. ``device_sample_batch``: bench.py's space drawn at n = 65,536 on the
+    card under ``torch.cuda.set_sync_debug_mode("error")`` (no readback):
+    the tensors' device, a KS test per label against ``sample_batch``'s
+    draw at another seed, ms per draw beside ``sample_batch``'s.
+30. ``quality``: ``scripts/quality_study_torch.py`` at c = 65,536 on the
+    card (four domains, seeds 0-3, 60 trials): each mean regret beside
+    the reference's per-seed range in ``QUALITY.json``, its verdict and
+    the wall seconds; then ``quality_summary``.
+31. ``timing``: each kernel, its plain version and one PyTorch library call
     computing the same function, by CUDA events at the main-path shape;
     the kernel's device ms per launch (``torch.profiler``); its bound, the
     larger of the f32 operations at the f32 peak, the issue slots and SFU
@@ -190,8 +211,10 @@ so the probe does not change the tier the others measure.  Then the
 ``kernels`` line (``pair_lse_partials``' launches are the mesh phase's
 main path's; with ``launches_service``, each kernel's launches in
 the service phase's concurrent run, and ``launches_replica_failover``,
-the surviving replica's launches after the kill), the ``nvidia-smi``
-line, and last
+the surviving replica's launches after the kill; ``launches_recompile_audit``,
+``launches_checkpoint`` and ``launches_quality``, those of this order's
+phases 27, 28 and 30), a ``total`` line with the script's seconds, the
+``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of
 ``hyperopt_tpu``; needs one card.
 """
@@ -3153,6 +3176,211 @@ def phase_mesh(T, counters):
     return err, launches["pair_lse_partials"]
 
 
+def phase_self_lint():
+    """The port's own self-lint over ``hyperopt_tpu_torch/`` on this
+    machine (no JAX): race, durability, static program and protocol
+    passes and the small-scope protocol model check; no error finding.
+    Each section's findings and seconds."""
+    from hyperopt_tpu_torch.analysis import Severity, run_self_lint
+
+    t0 = time.perf_counter()
+    sections = run_self_lint()
+    rows = {key: {"findings": len(ds), "errors": sum(d.severity == Severity.ERROR for d in ds),
+                  "seconds": secs} for key, _, ds, secs in sections}
+    found = [d.format() for _, _, ds, _ in sections for d in ds]
+    emit("self_lint", sections=rows, findings=found[:20], seconds=time.perf_counter() - t0)
+    assert not any(r["errors"] for r in rows.values()), found
+
+
+AUDIT_TRIALS = 200
+
+
+def phase_recompile_audit(T, counters):
+    """``audit_tpe_run`` on the card for 200 trials (the probe space: one
+    continuous family of 2 labels and one index family; 20 startup
+    trials): no PL205, the compile events per trial-count bucket, and the
+    pair-score kernel launched once per TPE suggest."""
+    from hyperopt_tpu_torch.analysis import audit_tpe_run
+
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    aud = audit_tpe_run(n_trials=AUDIT_TRIALS, device="cuda")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters}
+    diags = aud.diagnostics()
+    emit("recompile_audit", n_trials=AUDIT_TRIALS, compile_events=aud.n_traces,
+         program_keys=aud.n_programs, events_per_bucket=aud.bucket_summary(),
+         pl205=[d.format() for d in diags], launches=launches, seconds=seconds)
+    assert not diags, [d.format() for d in diags]
+    assert aud.n_traces >= 1
+    assert launches["pair_score_batched"] == AUDIT_TRIALS - 20, launches
+    return launches
+
+
+CHECKPOINT_TRIALS = (8, 16)
+
+
+def phase_checkpoint(T, counters):
+    """``fmin(trials_save_file=<dir>/run.orbax)`` at the main path's
+    history: 8 trials, then resumed in a fresh ``Trials`` to 16 with the
+    same ``rstate`` stream, trial for trial an uninterrupted 16-trial run;
+    the newest step's payload truncated, restore falls back to the step
+    before.  Save ms per step during the run; at 10,000 trials the step's
+    bytes and save ms beside the pickle path's."""
+    from hyperopt_tpu_torch.checkpoint import TrialsCheckpointer, atomic_pickle_dump
+
+    t_phase = time.perf_counter()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "checkpoint_smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    path = os.path.join(root, "run.orbax")
+    space = bench_space(T.hp)
+    algo = partial(T.tpe.suggest, n_EI_candidates=N_CAND)
+    n1, n2 = CHECKPOINT_TRIALS
+    save_ms, real_save = [], TrialsCheckpointer.save
+
+    def timed_save(self, trials):
+        t0 = time.perf_counter()
+        out = real_save(self, trials)
+        save_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    rstate = np.random.default_rng(0)
+    TrialsCheckpointer.save = timed_save
+    try:
+        for c in counters:
+            c.launches = 0
+        T.fmin(bench_objective, space, algo=algo, max_evals=N_HISTORY + n1,
+               trials=prefilled_trials(T, N_HISTORY), trials_save_file=path, rstate=rstate,
+               show_progressbar=False)
+        resumed = T.Trials()
+        T.fmin(bench_objective, space, algo=algo, max_evals=N_HISTORY + n2, trials=resumed,
+               trials_save_file=path, rstate=rstate, show_progressbar=False)
+        torch.cuda.synchronize()
+        launches = {c.__name__: c.launches for c in counters}
+    finally:
+        TrialsCheckpointer.save = real_save
+    whole = prefilled_trials(T, N_HISTORY)
+    T.fmin(bench_objective, space, algo=algo, max_evals=N_HISTORY + n2, trials=whole,
+           rstate=np.random.default_rng(0), show_progressbar=False)
+    same = [a == b for a, b in zip(suggested(resumed), suggested(whole))]
+    steps = TrialsCheckpointer(path).steps()
+    newest = os.path.join(path, str(steps[-1]), "default", "metadata")
+    step_bytes = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in
+                     os.walk(os.path.join(path, str(steps[-1]))) for f in fs)
+    with open(newest, "r+b") as f:
+        f.truncate(os.path.getsize(newest) // 2)
+    fallback = TrialsCheckpointer(path).restore()
+    fell_back = [d["misc"]["vals"] for d in fallback.trials] == \
+        [d["misc"]["vals"] for d in resumed.trials[:-1]]
+    # one save of the 10,000-trial history each way, 3 times
+    base = prefilled_trials(T, N_HISTORY)
+    orbax_ms, pickle_ms = [], []
+    for i in range(3):
+        t0 = time.perf_counter()
+        TrialsCheckpointer(os.path.join(root, f"at10k_{i}.orbax")).save(base)
+        orbax_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        atomic_pickle_dump(base, os.path.join(root, f"at10k_{i}.pkl"))
+        pickle_ms.append((time.perf_counter() - t0) * 1e3)
+    at10k_bytes = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in
+                      os.walk(os.path.join(root, "at10k_0.orbax")) for f in fs)
+    emit("checkpoint", n_history=N_HISTORY, trials=[n1, n2], launches=launches,
+         resumed_equal_to_uninterrupted=sum(same), compared=len(same), steps_retained=steps,
+         fallback_step=steps[-2], fallback_trials=len(fallback.trials), fell_back=fell_back,
+         save_ms_per_step=save_ms, save_ms_median=float(np.median(save_ms)),
+         step_bytes_at_end=step_bytes, at_10k={
+             "orbax_save_ms": orbax_ms, "orbax_step_bytes": at10k_bytes,
+             "pickle_save_ms": pickle_ms,
+             "pickle_bytes": os.path.getsize(os.path.join(root, "at10k_0.pkl"))},
+         seconds=time.perf_counter() - t_phase)
+    shutil.rmtree(root, ignore_errors=True)
+    assert len(resumed.trials) == N_HISTORY + n2 and len(same) == n2 and all(same), same
+    assert launches["pair_score_batched"] >= 2 * n2, launches
+    assert len(steps) == 3 and fell_back and len(fallback.trials) == N_HISTORY + n2 - 1
+    return launches
+
+
+SAMPLE_N = 65_536
+
+
+def phase_device_sample_batch(T):
+    """bench.py's 5-label space drawn at n = 65,536 by
+    ``device_sample_batch`` under the sync debug mode "error" (any readback
+    or synchronizing copy raises): tensors on the card; per label a KS test
+    against ``sample_batch``'s read-back draw at another seed; ms per draw
+    (CUDA events; host clock to a synchronize) beside ``sample_batch``'s."""
+    from scipy import stats
+
+    from hyperopt_tpu_torch.vectorize import CompiledSpace
+
+    t_phase = time.perf_counter()
+    cs = CompiledSpace(bench_space(T.hp))
+    cs.device_sample_batch(0, SAMPLE_N)  # the generator's and allocator's first use
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        vals, active = cs.device_sample_batch(1, SAMPLE_N)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    on_card = all(v.is_cuda for v in vals.values()) and all(a.is_cuda for a in active.values())
+    ref, _ = cs.sample_batch(2, SAMPLE_N)
+    ks = {lb: float(stats.ks_2samp(vals[lb].cpu().numpy(), ref[lb]).pvalue) for lb in vals}
+    draw_event_ms = cuda_ms(lambda: cs.device_sample_batch(1, SAMPLE_N), 20)
+
+    def host_ms(fn, n=20):
+        out = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(out))
+
+    emit("device_sample_batch", n=SAMPLE_N, labels=sorted(vals), on_card=on_card,
+         dtypes={lb: str(v.dtype) for lb, v in vals.items()}, ks_pvalue=ks,
+         draw_event_ms=draw_event_ms,
+         draw_host_ms=host_ms(lambda: cs.device_sample_batch(1, SAMPLE_N)),
+         sample_batch_host_ms=host_ms(lambda: cs.sample_batch(1, SAMPLE_N)),
+         seconds=time.perf_counter() - t_phase)
+    assert on_card and all(v.shape == (SAMPLE_N,) for v in vals.values())
+    assert all(p > 1e-4 for p in ks.values()), ks
+
+
+QUALITY_CANDS = 65_536
+
+
+def phase_quality(T, counters):
+    """``scripts/quality_study_torch.py`` at c = 65,536 on the card: the
+    four domains, seeds 0-3, 60 trials each; each mean regret beside the
+    reference's ``QUALITY.json`` per-seed range with its verdict (held in
+    tier-1 at c = 24; a miss is recorded, not failed here), the wall
+    seconds, and the pair-score launches."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("quality_study_torch", os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "scripts", "quality_study_torch.py"))
+    qs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(qs)
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    rows = qs.study(cands=(QUALITY_CANDS,), device="cuda",
+                    emit=lambda row: emit("quality", **row))
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counters}
+    emit("quality_summary", rows=len(rows), outside_reference_worst=[r["key"] for r in rows
+                                                                     if not r["ok"]],
+         launches=launches, seconds=time.perf_counter() - t0)
+    assert len(rows) == len(qs.DOMAINS) and all(
+        len(r["per_seed"]) == len(qs.SEEDS) and all(math.isfinite(x) for x in r["per_seed"])
+        for r in rows)
+    assert launches["pair_score_batched"] > 0, launches
+    return launches
+
+
 def device_ms_per_launch(fn, names, iters=50):
     """Device time per call of ``fn`` of the kernels whose names hold one of
     ``names``, by ``torch.profiler``: the kernels alone, without the
@@ -3316,6 +3544,7 @@ def single_label_err():
 
 
 def main():
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -3365,6 +3594,11 @@ def main():
     service_launches = phase_service(T, counters)
     replica_launches = phase_replica_failover(T)
     errs["pair_lse_partials"], mesh_launches = phase_mesh(T, counters)
+    phase_self_lint()
+    audit_launches = phase_recompile_audit(T, counters)
+    checkpoint_launches = phase_checkpoint(T, counters)
+    phase_device_sample_batch(T)
+    quality_launches = phase_quality(T, counters)
     launches = {**launches, "fused_suggest": fused_runs["0"][0]["fused_suggest"],
                 "pair_lse_partials": mesh_launches,
                 "fused_suggest_draw": fused_runs["1"][0]["fused_suggest"],
@@ -3375,8 +3609,14 @@ def main():
         r["launches_service"] = service_launches[r["name"]]
         # the surviving replica's launches after the kill (its own process)
         r["launches_replica_failover"] = replica_launches[r["name"]]
+        # the launches of this slice's paths: the recompile audit, the
+        # checkpointed fmin and the regret check
+        r["launches_recompile_audit"] = audit_launches[r["name"]]
+        r["launches_checkpoint"] = checkpoint_launches[r["name"]]
+        r["launches_quality"] = quality_launches[r["name"]]
     assert "jax" not in sys.modules and not any(
         m == "hyperopt_tpu" or m.startswith("hyperopt_tpu.") for m in sys.modules)
+    emit("total", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

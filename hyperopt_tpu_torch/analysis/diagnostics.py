@@ -1,18 +1,55 @@
-"""Structured diagnostics of the space lint.
+"""Shared structured-diagnostic model of the port's analysis passes.
 
-Reference parity: ``hyperopt_tpu/analysis/diagnostics.py`` — the
-``Diagnostic`` record (rule id, severity, location, message, fix hint),
-the rule catalog, suppression by rule id, and the reporter — with the
-catalog cut to the ``SP1xx`` space rules, the only pass ported so far.
-The reference's program, race, durability and protocol passes (and the
-``# lint: disable`` source comments they read) wait for ROADMAP.md
-queue A item 7.
+Every pass (:mod:`space_lint`, :mod:`program_lint`, :mod:`race_lint`,
+:mod:`durability_lint`, :mod:`protocol_lint`) emits :class:`Diagnostic`
+records — rule id, severity, location (graph path for spaces,
+``file:line`` for source), message, fix hint — so one reporter, one
+suppression mechanism, and one gate serve all of them.
+
+Rule ids, titles and wording are the reference's
+(``hyperopt_tpu/analysis/diagnostics.py``), so one diagnostic reads the
+same from both packages: ``SP1xx`` space rules, ``PL205``/``PL208``
+program rules (the recompile audit and the dispatch-container check; the
+reference's other ``PL2xx`` rules audit jitted, donated or partitioned
+programs, which the port does not have), ``RL3xx`` race rules, ``DL4xx``
+durability rules, ``SG7xx`` segment-protocol rules.  (``FS4xx`` ids are
+fsck *repair* rules, not analyzer rules — they live in
+:mod:`hyperopt_tpu_torch.resilience.fsck`.)
+
+Suppression:
+
+- API: every ``lint_*`` entry point accepts ``suppress=("SP105", ...)``.
+- Source comments (AST passes): ``# lint: disable=RL301`` on the
+  flagged line suppresses that rule there; ``# lint: disable`` with no
+  ids suppresses every rule on the line.
 """
 
 from __future__ import annotations
 
+import ast
+import re
 from dataclasses import dataclass
-from typing import Iterable, List, Optional
+from typing import Iterable, List, Optional, Tuple
+
+
+# One definition of "this name smells like a lock" shared by the race
+# and durability passes, so both draw the same lock boundaries.
+LOCKISH_RE = re.compile(r"lock|mutex|cond|cv\b|sem", re.IGNORECASE)
+
+
+def dotted_chain(node: ast.AST) -> Tuple[str, ...]:
+    """Dotted chain of an attribute/name expression, outermost-first:
+    ``('os', 'replace')`` for ``os.replace``, ``('self', '_thread',
+    'join')`` for ``self._thread.join``, ``('join',)`` when the root is
+    dynamic (a call result, subscript, ...).  Shared by the AST passes
+    so call-target matching stays consistent across them."""
+    parts: List[str] = []
+    while isinstance(node, ast.Attribute):
+        parts.append(node.attr)
+        node = node.value
+    if isinstance(node, ast.Name):
+        parts.append(node.id)
+    return tuple(reversed(parts))
 
 
 class Severity:
@@ -38,9 +75,14 @@ class Rule:
     doc: str
 
 
+# ---------------------------------------------------------------------
+# Rule catalog (listed in README.md's port section)
+# ---------------------------------------------------------------------
+
 RULES = {
     r.id: r
     for r in [
+        # -- space_lint ------------------------------------------------
         Rule(
             "SP101", Severity.ERROR, "duplicate-label",
             "The same hyperparameter label names two distinct nodes "
@@ -90,6 +132,160 @@ RULES = {
             "uniformint/randint bounds, or a (high-low) span that is "
             "not a multiple of q (the top lattice point is clipped).",
         ),
+        # -- program_lint ----------------------------------------------
+        Rule(
+            "PL205", Severity.ERROR, "excess-retrace",
+            "A fused device program re-traced for a (trial-count "
+            "bucket, family) it had already compiled: the jit cache "
+            "key leaks a per-call value, and every suggest pays a "
+            "recompile instead of O(log N) compiles per run.",
+        ),
+        Rule(
+            "PL208", Severity.ERROR, "unnormalized-dispatch-container",
+            "A dispatch call site hands the fused suggest program a "
+            "request whose args ride in a list instead of the "
+            "normalized tuple form: the container type is part of the "
+            "jit pytree key, so the same workload silently retraces "
+            "per call.",
+        ),
+        # -- race_lint -------------------------------------------------
+        Rule(
+            "RL301", Severity.ERROR, "unguarded-access",
+            "A field annotated '# guarded-by: <lock>' is read or "
+            "written outside a 'with self.<lock>:' block (and outside "
+            "__init__): a concurrent mutator can interleave.",
+        ),
+        Rule(
+            "RL302", Severity.ERROR, "lock-order-inversion",
+            "Locks are acquired in an order that contradicts the "
+            "declared '# lock-order:' — two threads taking them in "
+            "opposite orders deadlock.",
+        ),
+        Rule(
+            "RL303", Severity.WARNING, "unknown-guard",
+            "A '# guarded-by:' annotation names a lock that is never "
+            "assigned in the class: the annotation is stale or "
+            "misspelled, so the discipline it declares is unchecked.",
+        ),
+        Rule(
+            "RL304", Severity.ERROR, "lock-cycle",
+            "The observed lock-acquisition graph (nested 'with' "
+            "blocks plus same-scope method calls made under a lock) "
+            "contains a cycle: two threads walking the cycle from "
+            "different entry points deadlock.",
+        ),
+        Rule(
+            "RL305", Severity.WARNING, "blocking-call-under-lock",
+            "A blocking call (fsync, HTTP, device dispatch/readback, "
+            "thread join) is made while holding a lock: every thread "
+            "contending on that lock stalls behind the disk/network/"
+            "device, and a join can deadlock against the joined "
+            "thread taking the same lock.",
+        ),
+        Rule(
+            "RL306", Severity.ERROR, "unregistered-lock-module",
+            "A module constructs a threading.Lock/RLock/Condition but "
+            "carries no guarded-by annotations and is not explicitly "
+            "exempted: its lock discipline is invisible to the race "
+            "pass, so violations in it can never be caught.",
+        ),
+        # -- durability_lint ---------------------------------------------
+        Rule(
+            "DL401", Severity.ERROR, "truncate-live-path",
+            "A live (non-tmp) file is opened with a truncating mode: "
+            "a crash between the truncate and the write leaves the "
+            "path EMPTY (the ids.counter tear class — duplicate trial "
+            "ids on restart).  Durable writes must go write-tmp -> "
+            "fsync -> os.replace.",
+        ),
+        Rule(
+            "DL402", Severity.ERROR, "replace-without-fsync",
+            "os.replace/os.rename publishes a tmp file written in the "
+            "same function without an fsync on the source handle: "
+            "after a power loss the rename can survive while the data "
+            "does not, leaving a durable path pointing at garbage.",
+        ),
+        Rule(
+            "DL403", Severity.ERROR, "unframed-journal-append",
+            "An O_APPEND journal append is not CRC-framed or is built "
+            "from multiple write() calls: a torn append becomes "
+            "indistinguishable from a valid record (or tears across "
+            "records), defeating the resync-on-load discipline.",
+        ),
+        Rule(
+            "DL404", Severity.WARNING, "dangling-tmp",
+            "A tmp file is created outside the atomic-replace idiom "
+            "(no os.replace publishing it in the same function): "
+            "either the write is not actually atomic, or droppings "
+            "accumulate forever.",
+        ),
+        Rule(
+            "DL405", Severity.ERROR, "unlocked-read-modify-write",
+            "A shared file is read and then rewritten in the same "
+            "function with no lock and no O_APPEND: two concurrent "
+            "writers interleave read-modify-write and one update is "
+            "silently lost.",
+        ),
+        # -- protocol_lint -----------------------------------------------
+        Rule(
+            "SG701", Severity.ERROR, "unvalidated-durable-commit",
+            "A replication-write site publishes its commit point (the "
+            "manifest) without a fence validation immediately before "
+            "it, or an orphan sweep unlinks a segment with no "
+            "straggler re-home preceding the unlink: a stale mirror "
+            "can commit over a takeover, or acked records that exist "
+            "nowhere else are destroyed.",
+        ),
+        Rule(
+            "SG702", Severity.ERROR, "write-after-manifest-publish",
+            "A durable write follows the manifest publish in a "
+            "replication-write site: the manifest is the commit point, "
+            "so anything written after it is either unreferenced "
+            "(wasted) or — for sidecars — can clobber post-takeover "
+            "state the already-published manifest now governs.",
+        ),
+        Rule(
+            "SG703", Severity.ERROR, "non-contiguous-cursor-advance",
+            "A replay cursor/offset is advanced past bytes the view "
+            "never applied: a max(cursor, end)-style jump, or an "
+            "unguarded advance in a cursor-advance site (no "
+            "contiguity equality check dominating the assignment).  "
+            "Under O_APPEND another process's records can land in the "
+            "gap and be skipped forever.",
+        ),
+        Rule(
+            "SG704", Severity.ERROR, "shared-lock-unlink",
+            "A stale shared lock file is broken by unlinking the "
+            "shared path directly (inside the FileExistsError "
+            "acquire path): two breakers that both judged the lock "
+            "stale can each unlink-and-recreate, ending up inside the "
+            "critical section concurrently.  Rename the lock to a "
+            "private name first — only one breaker wins the rename.",
+        ),
+        Rule(
+            "SG705", Severity.ERROR, "pull-without-ownership-check",
+            "A replication-write site performs a durable write before "
+            "checking destination ownership: a mirror tick racing a "
+            "local takeover overwrites the live manifest, response "
+            "journal, seed cursor, or id counter with the stale "
+            "source snapshot.",
+        ),
+        Rule(
+            "SG706", Severity.ERROR, "protocol-model-violation",
+            "The explicit-state protocol model checker found an "
+            "interleaving (with at most one crash injected after a "
+            "durable step) that violates a store/replication "
+            "invariant: an acked record is lost, two sealers enter "
+            "the critical section, the manifest dangles, a fence "
+            "moves backwards, or a replayed view diverges from the "
+            "log.  The diagnostic carries the violating schedule.",
+        ),
+        Rule(
+            "SG707", Severity.WARNING, "unknown-protocol-annotation",
+            "A '# protocol:' annotation names a role the protocol "
+            "pass does not know, or attaches to no function: the "
+            "discipline it was meant to declare is unchecked.",
+        ),
     ]
 }
 
@@ -120,6 +316,32 @@ def make(rule: str, location: str, message: str, hint: str = "",
         severity = RULES[rule].severity if rule in RULES else Severity.WARNING
     return Diagnostic(rule=rule, severity=severity, location=location,
                       message=message, hint=hint)
+
+
+# ---------------------------------------------------------------------
+# Suppression
+# ---------------------------------------------------------------------
+
+_DISABLE_RE = re.compile(r"#\s*lint:\s*disable(?:=([A-Z0-9, ]+))?")
+
+
+def line_suppressions(source_line: str) -> Optional[frozenset]:
+    """Rule ids disabled by a ``# lint: disable=...`` comment on the
+    line, ``frozenset()`` for a bare ``# lint: disable`` (all rules),
+    or None when the line has no suppression comment."""
+    m = _DISABLE_RE.search(source_line)
+    if m is None:
+        return None
+    if m.group(1) is None:
+        return frozenset()
+    return frozenset(x.strip() for x in m.group(1).split(",") if x.strip())
+
+
+def suppressed_by_comment(rule: str, source_line: str) -> bool:
+    sup = line_suppressions(source_line)
+    if sup is None:
+        return False
+    return len(sup) == 0 or rule in sup
 
 
 def apply_suppressions(

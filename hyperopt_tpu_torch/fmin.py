@@ -56,34 +56,11 @@ from .utils import coarse_utcnow
 logger = logging.getLogger(__name__)
 
 
-def _not_ported(keyword, item):
-    raise NotImplementedError(
-        f"fmin({keyword}) is not ported to hyperopt_tpu_torch yet "
-        f"(ROADMAP.md: {item}); use hyperopt_tpu for it"
-    )
-
-
 def _default_max_speculation():
     """The speculation depth of the pipelined loop when the caller gives
     none: ``HYPEROPT_MAX_SPECULATION``, else 1 (the reference's default,
     ``hyperopt_tpu/fmin.py:54``).  Read at call time."""
     return int(os.environ.get("HYPEROPT_MAX_SPECULATION", "1"))
-
-
-def _check_unported(trials_save_file):
-    if str(trials_save_file).endswith(".orbax"):
-        _not_ported("trials_save_file='*.orbax'", "queue A item 8, checkpoint.py")
-
-
-def _atomic_pickle_dump(obj, path, protocol):
-    """Write-then-rename with fsync: a crash mid-save never tears the
-    checkpoint the next run resumes from."""
-    tmp = f"{path}.tmp.{os.getpid()}"
-    with open(tmp, "wb") as f:
-        pickle.dump(obj, f, protocol=protocol)
-        f.flush()
-        os.fsync(f.fileno())
-    os.replace(tmp, path)
 
 
 def fmin_pass_expr_memo_ctrl(f):
@@ -147,12 +124,12 @@ class FMinIter:
         show_progressbar=True,
         early_stop_fn=None,
         trials_save_file="",
+        orbax_ckpt=None,
         max_speculation=None,
         retry_policy=None,
         fault_stats=None,
         search_stats=None,
     ):
-        _check_unported(trials_save_file)
         self.algo = algo
         self.domain = domain
         self.trials = trials
@@ -187,6 +164,13 @@ class FMinIter:
         self.early_stop_fn = early_stop_fn
         self.early_stop_args = []
         self.trials_save_file = trials_save_file
+        self._orbax_ckpt = orbax_ckpt
+        if orbax_ckpt is None and trials_save_file != "":
+            from .checkpoint import TrialsCheckpointer, is_orbax_path
+
+            if is_orbax_path(trials_save_file):
+                # a directly-constructed FMinIter owns its own checkpointer
+                self._orbax_ckpt = TrialsCheckpointer(trials_save_file)
         if search_stats is None:
             # a partial-as-config algo (partial(tpe.suggest,
             # n_startup_jobs=...)) declares its startup horizon in its
@@ -546,9 +530,18 @@ class FMinIter:
                 # the error count) into the run's search health
                 self.search_stats.observe_trials(self.trials)
                 if self.trials_save_file != "":
-                    _atomic_pickle_dump(
-                        self.trials, self.trials_save_file, self.pickle_protocol
-                    )
+                    if self._orbax_ckpt is not None:
+                        self._orbax_ckpt.save(self.trials)
+                    else:
+                        # fsync'd write-then-rename: a crash mid-save never
+                        # tears the checkpoint the next run resumes from
+                        from .checkpoint import atomic_pickle_dump
+
+                        atomic_pickle_dump(
+                            self.trials,
+                            self.trials_save_file,
+                            protocol=self.pickle_protocol,
+                        )
                 if self.early_stop_fn is not None:
                     stop, kwargs = self.early_stop_fn(
                         self.trials, *self.early_stop_args
@@ -683,11 +676,12 @@ def fmin(
     work on the card, instead of a NaN on the card many trials in, and
     warnings are logged.  Off by default, as in the reference.
 
-    A ``trials_save_file`` ending in ``.orbax`` raises
-    ``NotImplementedError`` (not ported yet).  A plain
-    ``trials_save_file`` is a pickle checkpoint the next run resumes from.
+    A ``trials_save_file`` ending in ``.orbax`` is a directory of
+    versioned JSON steps in orbax's layout
+    (:class:`~hyperopt_tpu_torch.checkpoint.TrialsCheckpointer`); any
+    other ``trials_save_file`` is a pickle checkpoint.  Either way the
+    next run resumes from it.
     """
-    _check_unported(trials_save_file)
     if validate_space:
         from .analysis import Severity, lint_space
 
@@ -724,12 +718,26 @@ def fmin(
     if max_evals is None:
         max_evals = sys.maxsize
 
-    if trials_save_file != "" and os.path.exists(trials_save_file):
-        with open(trials_save_file, "rb") as f:
-            trials = pickle.load(f)
+    orbax_ckpt = None
+    if trials_save_file != "":
+        from .checkpoint import TrialsCheckpointer, is_orbax_path
+
+        if is_orbax_path(trials_save_file):
+            # versioned, atomic, retained steps: resume from the newest
+            # readable step.  One checkpointer serves the restore and the
+            # run's saves (FMinIter); restoring ``into`` a user-passed
+            # trials object keeps its subclass and attachments.
+            orbax_ckpt = TrialsCheckpointer(trials_save_file)
+            restored = orbax_ckpt.restore(into=trials)
+            if restored is not None:
+                trials = restored
+        elif os.path.exists(trials_save_file):
+            with open(trials_save_file, "rb") as f:
+                trials = pickle.load(f)
 
     if allow_trials_fmin and trials is not None and hasattr(trials, "fmin"):
         assert not isinstance(trials, list)
+        # the re-entered fmin opens its own checkpointer on this directory
         return trials.fmin(
             fn,
             space,
@@ -783,6 +791,7 @@ def fmin(
         show_progressbar=show_progressbar,
         early_stop_fn=early_stop_fn,
         trials_save_file=trials_save_file,
+        orbax_ckpt=orbax_ckpt,
         max_speculation=max_speculation,
         retry_policy=retry_policy,
         fault_stats=fault_stats,

@@ -24,12 +24,19 @@ def _quantize(x, q):
     return torch.round(x / q) * q
 
 
-def _f32(v, gen):
-    return torch.tensor(v, dtype=_FLOAT, device=gen.device)
+def _const(v, gen):
+    """``v`` as a float32 tensor on the generator's device.  On the card
+    it goes through pinned host memory and a non-blocking copy, so a draw
+    never blocks the host (``CompiledSpace.device_sample_batch`` runs
+    under ``torch.cuda.set_sync_debug_mode("error")`` on the card)."""
+    t = torch.tensor(v, dtype=_FLOAT)
+    if gen.device.type == "cuda":
+        return t.pin_memory().to(gen.device, non_blocking=True)
+    return t.to(gen.device)
 
 
 def uniform(gen, p, n):
-    lo, hi = _f32(p["low"], gen), _f32(p["high"], gen)
+    lo, hi = _const(p["low"], gen), _const(p["high"], gen)
     u = torch.rand(n, generator=gen, device=gen.device, dtype=_FLOAT)
     return torch.maximum(lo, u * (hi - lo) + lo)
 
@@ -54,7 +61,7 @@ def uniformint(gen, p, n):
 
 def normal(gen, p, n):
     z = torch.randn(n, generator=gen, device=gen.device, dtype=_FLOAT)
-    return _f32(p["mu"], gen) + _f32(p["sigma"], gen) * z
+    return _const(p["mu"], gen) + _const(p["sigma"], gen) * z
 
 
 def qnormal(gen, p, n):
@@ -91,7 +98,7 @@ def inverse_cdf(p, u):
 
 
 def categorical(gen, p, n):
-    probs = torch.as_tensor(p["p"], dtype=_FLOAT, device=gen.device)
+    probs = _const(p["p"], gen)
     u = torch.rand(n, generator=gen, device=gen.device, dtype=_FLOAT)
     return inverse_cdf(probs, u).to(_INT)
 

@@ -7,16 +7,22 @@ minutes).  Libraries go to ``build/kernels/`` at the root of the checkout,
 named by a hash of their source and of the shared headers (``*.cuh``)
 so an edited kernel or header is rebuilt; they are
 built at first use, or all at once, in parallel, by :func:`build`.
-Nothing here runs when the module is imported.
+Nothing here runs when the module is imported.  One module lock
+serializes :func:`load`'s check, build and load, so two threads' first
+launch of one kernel run ``nvcc`` once; each build writes its own
+temporary file and publishes it with ``os.replace``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -27,10 +33,11 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_loaded = {}
+_lock = threading.Lock()
+_loaded = {}  # guarded-by: _lock
 # kernel-library cache accounting (the compile ledger's cache counters):
 # a load that found its library on disk is a hit, one that ran nvcc a miss
-_cache_events = {"hits": 0, "misses": 0}
+_cache_events = {"hits": 0, "misses": 0}  # guarded-by: _lock
 
 
 def _nvcc() -> str:
@@ -75,7 +82,9 @@ def build(names) -> dict:
         if out.exists():
             report[name] = {"path": str(out), "seconds": 0.0, "ptxas": ""}
             continue
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        # unique per build: two builds of one library never share a file
+        fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, prefix=f"{out.name}.", suffix=".tmp")
+        os.close(fd)
         cmd = nvcc_command(CSRC / f"{name}.cu", tmp)
         jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True),
@@ -85,6 +94,8 @@ def build(names) -> dict:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             failed.append(f"{name}:\n{log}")
+            with contextlib.suppress(FileNotFoundError):
+                os.unlink(tmp)
             continue
         os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
         report[name] = {"path": str(out), "seconds": time.perf_counter() - t0,
@@ -106,24 +117,29 @@ def set_build_dir(path) -> Path:
 def cache_events() -> dict:
     """``{"hits", "misses"}``: library loads that found their library
     built, and those that built it."""
-    return dict(_cache_events)
+    with _lock:
+        return dict(_cache_events)
 
 
 def n_loaded() -> int:
     """How many kernel libraries this process has loaded so far."""
-    return len(_loaded)
+    with _lock:
+        return len(_loaded)
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built first if needed."""
-    lib = _loaded.get(name)
-    if lib is None:
-        path = library_path(name)
-        if path.exists():
-            _cache_events["hits"] += 1
-        else:
-            _cache_events["misses"] += 1
-            build([name])
-        lib = ctypes.CDLL(str(path))
-        _loaded[name] = lib
-    return lib
+    """The loaded library of kernel ``name``, built first if needed.  The
+    first caller builds and loads it under the module lock; a concurrent
+    caller waits and gets the same library."""
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            path = library_path(name)
+            if path.exists():
+                _cache_events["hits"] += 1
+            else:
+                _cache_events["misses"] += 1
+                build([name])
+            lib = ctypes.CDLL(str(path))
+            _loaded[name] = lib
+        return lib

@@ -148,10 +148,8 @@ class TorchTrials(Trials):
         fault_stats=None,
         search_stats=None,
     ):
-        from ..fmin import _check_unported
         from ..fmin import fmin as _fmin
 
-        _check_unported(trials_save_file)
         assert (
             not pass_expr_memo_ctrl
         ), "TorchTrials executes objectives outside the driver; plain configs only"

@@ -365,7 +365,7 @@ class SpeculativeSuggestEngine:
                 for sp2 in stale[j:]:
                     # safe: _validate's only callers (speculate,
                     # next_batch) hold _dispatch_lock around the call
-                    self._spare.append((sp2.ids, sp2.seed))
+                    self._spare.append((sp2.ids, sp2.seed))  # lint: disable=RL301
                 break
             with self._pending_lock:
                 self._pending.append(

@@ -255,7 +255,7 @@ def _rebuild_manifest(sdir, seg_paths, parse, object_hook):
     }
 
 
-def _fsck_segments(qdir, repair, report: FsckReport) -> dict:
+def _fsck_segments(qdir, repair, report: FsckReport) -> dict:  # protocol: orphan-sweep
     """FS410/FS411/FS412 over ``<qdir>/segments``; returns the replayed
     {tid: doc} view so the lease/lock/cursor/counter rules see segment-
     stored trials exactly like per-doc ones.  Empty dict when the queue
@@ -283,6 +283,7 @@ def _fsck_segments(qdir, repair, report: FsckReport) -> dict:
                     dest = quarantine_path(manifest_path)
                     os.replace(manifest_path, dest)
                     action = f"quarantined to {os.path.basename(dest)}; "
+                # durability: exempt(offline repair: fsck runs single-writer against a stopped queue)
                 _write_doc(manifest_path, rebuilt, fsync_kind="segment")
                 fixed = True
                 action += (
@@ -356,6 +357,7 @@ def _fsck_segments(qdir, repair, report: FsckReport) -> dict:
                     for r in records
                 )
                 try:
+                    # durability: exempt(offline repair: fsck runs single-writer against a stopped queue)
                     _atomic_write(path, blob, fsync_kind="segment")
                     entry["bytes"] = len(blob)
                     entry["records"] = len(records)
@@ -418,6 +420,7 @@ def _fsck_segments(qdir, repair, report: FsckReport) -> dict:
                         for r in records
                     )
                     try:
+                        # durability: exempt(offline repair: fsck runs single-writer against a stopped queue)
                         _atomic_write(path, blob, fsync_kind="segment")
                         fixed = True
                         action = (
@@ -476,6 +479,7 @@ def _fsck_segments(qdir, repair, report: FsckReport) -> dict:
         if repair and (active or not stragglers):
             try:
                 if stragglers:
+                    # durability: exempt(offline repair: fsck runs single-writer against a stopped queue)
                     journal_io.append_records(
                         os.path.join(sdir, active), stragglers,
                         default=_json_default, fsync_kind="segment",
@@ -505,6 +509,7 @@ def _fsck_segments(qdir, repair, report: FsckReport) -> dict:
         # lineage instead of trusting pinned offsets into rewritten files
         manifest["epoch"] = int(manifest.get("epoch", 0)) + 1
         try:
+            # durability: exempt(offline repair: fsck runs single-writer against a stopped queue)
             _write_doc(manifest_path, manifest, fsync_kind="segment")
         except OSError:
             pass
@@ -591,6 +596,7 @@ def fsck_queue(qdir, repair=False, report: FsckReport = None) -> FsckReport:
                 if restored is not None:
                     try:
                         doc, draw = restored
+                        # durability: exempt(offline repair: fsck runs single-writer against a stopped queue)
                         _write_doc(path, doc)
                         docs_by_tid[int(doc["tid"])] = doc
                         seen_states[int(doc["tid"])] = doc["state"]
@@ -603,6 +609,7 @@ def fsck_queue(qdir, repair=False, report: FsckReport = None) -> FsckReport:
                                 if result.get("status") == STATUS_FAIL
                                 else JOB_STATE_DONE
                             )
+                            # durability: exempt(offline repair: fsck runs single-writer against a stopped queue)
                             _write_doc(path, doc)
                             seen_states[int(doc["tid"])] = doc["state"]
                         action += "; restored from response journal"
@@ -746,6 +753,7 @@ def fsck_queue(qdir, repair=False, report: FsckReport = None) -> FsckReport:
             fixed = False
             if repair:
                 try:
+                    # durability: exempt(offline repair: fsck runs single-writer against a stopped queue)
                     _atomic_write(counter_file, str(max_tid + 1).encode())
                     fixed = True
                 except OSError:
@@ -773,6 +781,7 @@ def fsck_queue(qdir, repair=False, report: FsckReport = None) -> FsckReport:
             fixed = False
             if repair:
                 try:
+                    # durability: exempt(offline repair: fsck runs single-writer against a stopped queue)
                     _atomic_write(cursor_file, str(evidenced).encode())
                     fixed = True
                 except OSError:
@@ -904,6 +913,7 @@ def _fsck_replica_plane(root, repair, report: FsckReport):
                 lease["expires_at"] = 0.0
                 lease["reclaimed_by"] = "fsck"
                 try:
+                    # durability: exempt(offline repair: fsck runs single-writer against a stopped store)
                     _write_doc(path, lease)
                     fixed = True
                     action = (

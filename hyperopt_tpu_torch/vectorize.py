@@ -182,18 +182,42 @@ class CompiledSpace:
     def sample_batch(self, seed, n: int, device=None):
         """Draw ``n`` configurations → ``(vals, active)`` numpy dicts.
 
-        ``seed`` (an int) seeds one ``torch.Generator`` on ``device``
-        (None: the CUDA card) that draws every label in space order."""
+        ``seed`` (an int, or a ``torch.Generator``) as in
+        :meth:`device_sample_batch`, whose draw this reads back once."""
         if not self.compiled:
             return self._sample_interpreted(seed, n)
-        gen = torch.Generator(device=resolve_device(device))
-        gen.manual_seed(int(seed))
-        drawn = [tdists.SAMPLERS[sp.dist](gen, sp.params, n) for sp in self.specs.values()]
-        flat = torch.cat([d.to(torch.float64) for d in drawn]).cpu().numpy()  # one readback
-        vals = {}
-        for i, (lb, sp) in enumerate(self.specs.items()):
+        vals_t, active_t = self.device_sample_batch(seed, n, device)
+        labels = list(self.specs)
+        flat = torch.cat(
+            [vals_t[lb].to(torch.float64) for lb in labels]
+            + [active_t[lb].to(torch.float64) for lb in labels]
+        ).cpu().numpy()  # one readback
+        vals, active = {}, {}
+        for i, lb in enumerate(labels):
             v = flat[i * n:(i + 1) * n]
-            vals[lb] = v.astype(np.int32) if sp.is_integer else v.astype(np.float32)
+            vals[lb] = v.astype(np.int32) if self.specs[lb].is_integer else v.astype(np.float32)
+            j = len(labels) + i
+            active[lb] = flat[j * n:(j + 1) * n] != 0
+        return vals, active
+
+    def device_sample_batch(self, generator_or_seed, n: int, device=None):
+        """Draw ``n`` configurations as tensors on the device, with no
+        readback → ``(vals, active)`` dicts of ``[n]`` tensors: values
+        float32 (int32 for index and integer distributions), masks bool.
+
+        ``generator_or_seed``: a ``torch.Generator`` (drawn on its own
+        device), or an int seeding a new one on ``device`` (None: the CUDA
+        card).  One generator draws every label in space order.  Raises
+        :class:`CompileError` for a space the compiler could not take."""
+        if not self.compiled:
+            raise CompileError(self.compile_error)
+        if isinstance(generator_or_seed, torch.Generator):
+            gen = generator_or_seed
+        else:
+            gen = torch.Generator(device=resolve_device(device))
+            gen.manual_seed(int(generator_or_seed))
+        vals = {lb: tdists.SAMPLERS[sp.dist](gen, sp.params, n)
+                for lb, sp in self.specs.items()}
         return vals, branch_activity(self.specs, vals, n)
 
     # -- interpreted fallback -------------------------------------------
@@ -236,17 +260,32 @@ def _find_hyperopt_param(expr, label, dist_node) -> Apply:
 
 def branch_activity(specs, vals, n: int):
     """Per label, the ``[n]`` bool mask of draws in which it is active:
-    the DNF of its ``conditions`` over the drawn choice values ``vals``."""
+    the DNF of its ``conditions`` over the drawn choice values ``vals``.
+    Numpy masks for numpy values; bool tensors on the values' device for
+    tensor values (no readback)."""
+    dev = next((v.device for v in vals.values() if isinstance(v, torch.Tensor)), None)
+    if dev is None:
+        def const(fill):
+            return np.full(n, fill, dtype=bool)
+
+        def equals(name, val):
+            return np.asarray(vals[name]) == val
+    else:
+        def const(fill):
+            return torch.full((n,), fill, dtype=torch.bool, device=dev)
+
+        def equals(name, val):
+            return vals[name] == val
     active = {}
     for lb, sp in specs.items():
         if not sp.conditions or any(len(conj) == 0 for conj in sp.conditions):
-            active[lb] = np.ones(n, dtype=bool)
+            active[lb] = const(True)
             continue
-        disj = np.zeros(n, dtype=bool)
+        disj = const(False)
         for conj in sp.conditions:
-            acc = np.ones(n, dtype=bool)
+            acc = const(True)
             for (name, val) in conj:
-                acc &= np.asarray(vals[name]) == val
+                acc &= equals(name, val)
             disj |= acc
         active[lb] = disj
     return active

@@ -576,10 +576,8 @@ class TestSL607:
 
 
 def test_compile_ledger_registered_for_race_lint():
-    """The JAX package's race lint passes on the port's ledger module (an
-    AST pass over a file; the port's own tooling is ROADMAP.md queue A
-    item 7)."""
-    from hyperopt_tpu.analysis import lint_file
+    """The port's own race lint passes on its ledger module."""
+    from hyperopt_tpu_torch.analysis import lint_file
 
     path = os.path.join(REPO, "hyperopt_tpu_torch", "compile_ledger.py")
     assert lint_file(path) == []

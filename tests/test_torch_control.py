@@ -805,10 +805,9 @@ class TestActuation:
 class TestLintCoverage:
     def test_race_lint_covers_control_package(self):
         """The control plane's locks (KnobSet table, controller decision
-        ring) lint clean under the JAX package's race pass (an AST pass
-        over files; the port's own tooling is ROADMAP.md queue A item
-        7), and both files carry guarded-by annotations for it to read."""
-        from hyperopt_tpu.analysis import format_report, lint_races
+        ring) lint clean under the port's own race pass, and both files
+        carry guarded-by annotations for it to read."""
+        from hyperopt_tpu_torch.analysis import format_report, lint_races
 
         from hyperopt_tpu_torch.control import controller, knobs
 

@@ -794,3 +794,56 @@ def test_all_padding_region_adds_exactly_zero_on_card(cuda):
     with_dead = sharding.lse_combine([p[0] for p in parts])
     without = sharding.lse_combine([p[0] for i, p in enumerate(parts) if i not in dead])
     assert torch.equal(with_dead.view(torch.int32), without.view(torch.int32))
+
+
+def test_device_sample_batch_on_card_without_a_sync(cuda):
+    """The draw stays on the card: under the sync debug mode "error" any
+    readback or synchronizing copy would raise.  Read back afterwards, it
+    equals ``sample_batch``'s draw at the same seed."""
+    import hyperopt_tpu_torch as T
+    from hyperopt_tpu_torch.vectorize import CompiledSpace
+
+    space = {
+        "lr": T.hp.loguniform("lr", np.log(1e-5), np.log(1.0)),
+        "width": T.hp.quniform("width", 32, 1024, 32),
+        "arch": T.hp.choice("arch", [{"d": T.hp.normal("d", 0, 3)}, {"k": T.hp.randint("k", 7)}]),
+    }
+    cs = CompiledSpace(space)
+    cs.device_sample_batch(0, 16)  # warm the allocator and the generator outside the check
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        vals, active = cs.device_sample_batch(5, 4096)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert all(v.is_cuda for v in vals.values()) and all(a.is_cuda for a in active.values())
+    ref_vals, ref_active = cs.sample_batch(5, 4096)
+    for lb in vals:
+        assert np.array_equal(vals[lb].cpu().numpy(), ref_vals[lb])
+        assert np.array_equal(active[lb].cpu().numpy(), ref_active[lb])
+
+
+def test_checkpointed_fmin_on_card(cuda, tmp_path):
+    """``fmin(trials_save_file='*.orbax')`` on the card: 8 trials saved,
+    resumed in a fresh ``Trials`` to 24 with the same ``rstate`` stream,
+    trial for trial the uninterrupted run."""
+    import hyperopt_tpu_torch as T
+    from hyperopt_tpu_torch.checkpoint import TrialsCheckpointer
+
+    space = {"x": T.hp.uniform("x", -5, 5), "c": T.hp.choice("c", [0, 1, 2])}
+
+    def loss(p):
+        return (p["x"] - 1.0) ** 2 + p["c"]
+
+    path = str(tmp_path / "run.orbax")
+    rstate = np.random.default_rng(3)
+    T.fmin(loss, space, max_evals=8, trials=T.Trials(), trials_save_file=path,
+           rstate=rstate, show_progressbar=False)
+    resumed = T.Trials()
+    T.fmin(loss, space, max_evals=24, trials=resumed, trials_save_file=path,
+           rstate=rstate, show_progressbar=False)
+    whole = T.Trials()
+    T.fmin(loss, space, max_evals=24, trials=whole, rstate=np.random.default_rng(3),
+           show_progressbar=False)
+    assert [d["misc"]["vals"] for d in resumed.trials] == [d["misc"]["vals"] for d in whole.trials]
+    assert len(TrialsCheckpointer(path).restore().trials) == 24

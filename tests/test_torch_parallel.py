@@ -202,7 +202,7 @@ def test_queue_depth_gives_multi_id_suggests():
     assert len(trials) == 12 and sum(ids_per_call) == 12 and max(ids_per_call) == 4
 
 
-def test_arguments():
+def test_arguments(tmp_path):
     assert TorchTrials(device="cpu").parallelism == 1
     assert TorchTrials(parallelism=1000, device="cpu").parallelism == 128
     # the mesh is ported: a spec that is none raises, a mesh on the CPU's
@@ -221,9 +221,22 @@ def test_arguments():
                 max_evals=2, retry_policy=T.resilience.RetryPolicy(), fault_stats=stats,
                 show_progressbar=False)
     assert len(trials) == 2 and stats.counts() == {}
-    with pytest.raises(NotImplementedError, match="item 8"):
-        trials.fmin(lambda c: 0.0, {"x": T.hp.uniform("x", 0, 1)}, algo=CPU_RAND,
-                    max_evals=3, trials_save_file="run.orbax")
+    # .orbax checkpoints are ported: the run saves its steps, and a fresh
+    # TorchTrials resumes from the newest one
+    from hyperopt_tpu_torch.checkpoint import TrialsCheckpointer
+
+    path = str(tmp_path / "run.orbax")
+    space = {"x": T.hp.uniform("x", 0, 1)}
+    saved = TorchTrials(device="cpu")
+    saved.fmin(lambda c: c["x"], space, algo=CPU_RAND, max_evals=3,
+               trials_save_file=path, show_progressbar=False)
+    assert len(saved) == 3 and TrialsCheckpointer(path).steps()
+    resumed = TorchTrials(device="cpu")
+    resumed.fmin(lambda c: c["x"], space, algo=CPU_RAND, max_evals=5,
+                 trials_save_file=path, show_progressbar=False)
+    assert len(resumed) == 5 and len(TrialsCheckpointer(path).restore()) == 5
+    assert [d["misc"]["vals"] for d in resumed.trials[:3]] == \
+        [d["misc"]["vals"] for d in saved.trials]
 
 
 # -- a 4-id suggest against the JAX package's --------------------------------

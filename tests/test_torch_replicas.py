@@ -1203,9 +1203,9 @@ def test_lease_and_registry_files_read_across_packages(tmp_path):
 
 
 def test_replica_plane_passes_the_race_lint():
-    """The JAX package's race lint (an AST pass over a file) passes on the
-    port's replica plane and the service core that drives it."""
-    from hyperopt_tpu.analysis import lint_file
+    """The port's own race lint passes on its replica plane and the
+    service core that drives it."""
+    from hyperopt_tpu_torch.analysis import lint_file
 
     for rel in ("service/replicas.py", "service/core.py", "compile_ledger.py"):
         path = os.path.join(ROOT, "hyperopt_tpu_torch", rel)

@@ -692,10 +692,9 @@ class TestServiceIntegration:
 
 
 def test_slo_registered_and_race_clean():
-    """The JAX package's race lint (an AST pass over a file; the port's
-    own tooling is ROADMAP.md queue A item 7) passes on the port's
-    ``slo.py``, whose shared state keeps its guarded-by annotations."""
-    from hyperopt_tpu.analysis import lint_races
+    """The port's own race lint passes on its ``slo.py``, whose shared
+    state keeps its guarded-by annotations."""
+    from hyperopt_tpu_torch.analysis import lint_races
 
     path = slo.__file__
     diags = lint_races(paths=[path])

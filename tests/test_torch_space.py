@@ -150,6 +150,43 @@ def test_conditional_branches_by_rand_suggest():
     assert np.all((draws["depth"] >= 0) & (draws["depth"] < 10))
 
 
+@pytest.mark.parametrize("name", sorted(SPACES))
+def test_device_sample_batch_is_sample_batch_without_the_readback(name):
+    """Same seed and device: the tensors on the device hold
+    ``sample_batch``'s values and masks; a ``torch.Generator`` seeded alike
+    draws the same."""
+    import torch
+
+    ts = TSpace(SPACES[name](T.hp))
+    n = 257
+    vals_t, active_t = ts.device_sample_batch(11, n, device="cpu")
+    vals, active = ts.sample_batch(11, n, device="cpu")
+    assert set(vals_t) == set(vals) == set(active_t)
+    for lb, spec in ts.specs.items():
+        v, a = vals_t[lb], active_t[lb]
+        assert isinstance(v, torch.Tensor) and v.device.type == "cpu" and v.shape == (n,)
+        assert v.dtype == (torch.int32 if spec.is_integer else torch.float32)
+        assert a.dtype == torch.bool
+        assert np.array_equal(v.numpy(), vals[lb]) and np.array_equal(a.numpy(), active[lb])
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(11)
+    vals_g, _ = ts.device_sample_batch(gen, n)
+    assert all(torch.equal(vals_g[lb], vals_t[lb]) for lb in vals_t)
+
+
+def test_device_sample_batch_refuses_an_uncompiled_space():
+    from hyperopt_tpu_torch.pyll.base import as_apply, scope
+    from hyperopt_tpu_torch.vectorize import CompileError
+
+    high = as_apply(1.0) + 1.0  # a non-literal parameter defeats the compiler
+    ts = TSpace({"x": scope.float(scope.hyperopt_param("x", scope.uniform(0.0, high)))})
+    assert not ts.compiled
+    with pytest.raises(CompileError):
+        ts.device_sample_batch(0, 8, device="cpu")
+    vals, active = ts.sample_batch(0, 8, device="cpu")  # the interpreted path
+    assert vals["x"].shape == (8,) and active["x"].all()
+
+
 def test_entry_points_need_a_card_or_an_explicit_cpu():
     code = (
         "import torch, numpy as np\n"

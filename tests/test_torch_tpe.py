@@ -320,20 +320,23 @@ def test_fmin_resumes_from_pickle(tmp_path):
 
 
 @pytest.mark.parametrize("kwargs", [
-    # speculation, retry policies, fault stats and the space lint are
-    # ported; with a keyword that is not, fmin still raises
-    {"max_speculation": 2, "validate_space": True, "trials_save_file": "run.orbax"},
-    {"validate_space": True, "trials_save_file": "run.orbax"},
-    {"retry_policy": T.resilience.RetryPolicy(), "trials_save_file": "run.orbax"},
-    {"fault_stats": T.observability.FaultStats(), "validate_space": True,
-     "trials_save_file": "run.orbax"},
-    {"trials_save_file": "run.orbax"},
+    # every keyword is ported: `.orbax` checkpoints (the last one) run
+    # beside speculation, retry policies, fault stats and the space lint
+    {"max_speculation": 2, "validate_space": True},
+    {"validate_space": True},
+    {"retry_policy": T.resilience.RetryPolicy()},
+    {"fault_stats": T.observability.FaultStats(), "validate_space": True},
+    {},
 ])
-def test_unported_keywords_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+def test_unported_keywords_raise(kwargs, tmp_path):
+    from hyperopt_tpu_torch.checkpoint import TrialsCheckpointer
+
+    path = str(tmp_path / "run.orbax")
+    for n in (2, 3):  # a run, then a resume from its checkpoint
         T.fmin(lambda c: 0.0, {"x": T.hp.uniform("x", 0, 1)},
-               algo=partial(T.rand.suggest, device="cpu"), max_evals=1,
-               show_progressbar=False, **kwargs)
+               algo=partial(T.rand.suggest, device="cpu"), max_evals=n,
+               show_progressbar=False, trials_save_file=path, **kwargs)
+        assert len(TrialsCheckpointer(path).restore()) == n
 
 
 def test_numpy_facing_wrappers_match_jax():
