@@ -192,7 +192,21 @@ non-zero without the final line):
     card (four domains, seeds 0-3, 60 trials): each mean regret beside
     the reference's per-seed range in ``QUALITY.json``, its verdict and
     the wall seconds; then ``quality_summary``.
-31. ``timing``: each kernel, its plain version and one PyTorch library call
+31. ``train_atpe``: ``python -m hyperopt_tpu_torch.models.train_atpe
+    --rows-out`` (its ``main``) for one shard of the corpus sweep on the
+    card: ``many_dists`` with 20 configs, 8 continuation evals and
+    checkpoints 20 28 36 45, seeds 0-1 (the sweep's 13 cut to 2): 8 rows,
+    every feature finite, every label inside the grid, no tensor in a
+    row, the shard read back equal, the pair-score kernel launched, the
+    shipped artifacts' digests unchanged; the kernel against its plain
+    version on the first and last inputs of each shape the build gave it
+    (``train_atpe_kernel_vs_plain`` lines); then seed 0 alone with
+    ``--device cpu`` on the same machine; states, trials, suggests,
+    seconds per state, wall ms per TPE trial and the median host ms of
+    one suggest each way; whether sklearn
+    imports (where it does not, a fitting run fails naming it before any
+    row is built).
+32. ``timing``: each kernel, its plain version and one PyTorch library call
     computing the same function, by CUDA events at the main-path shape;
     the kernel's device ms per launch (``torch.profiler``); its bound, the
     larger of the f32 operations at the f32 peak, the issue slots and SFU
@@ -212,14 +226,15 @@ so the probe does not change the tier the others measure.  Then the
 main path's; with ``launches_service``, each kernel's launches in
 the service phase's concurrent run, and ``launches_replica_failover``,
 the surviving replica's launches after the kill; ``launches_recompile_audit``,
-``launches_checkpoint`` and ``launches_quality``, those of this order's
-phases 27, 28 and 30), a ``total`` line with the script's seconds, the
-``nvidia-smi`` line, and last
+``launches_checkpoint``, ``launches_quality`` and ``launches_train_atpe``,
+those of this order's phases 27, 28, 30 and 31), a ``total`` line with the
+script's seconds, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of
 ``hyperopt_tpu``; needs one card.
 """
 
 import contextlib
+import copy
 import datetime
 import gc
 import json
@@ -3381,6 +3396,264 @@ def phase_quality(T, counters):
     return launches
 
 
+# one shard of scripts/atpe_corpus_sweep_torch.sh at its per-shard flags; the
+# one cut: seeds 0-1 where the sweep runs 13
+TRAIN_DOMAIN = "many_dists"
+TRAIN_SEEDS = (0, 1)
+TRAIN_SWEEP_SEEDS = 13
+TRAIN_CONFIGS, TRAIN_CONT_EVALS, TRAIN_CHECKPOINTS = 20, 8, (20, 28, 36, 45)
+
+
+def corpus_build(ta, seeds, device, shard):
+    """``python -m hyperopt_tpu_torch.models.train_atpe`` for one shard of
+    ``TRAIN_DOMAIN`` on ``device`` (``main`` with the sweep's flags and
+    ``--rows-out``), recording the rows ``build_corpus`` returned and
+    timing the TPE suggests that reach the device program
+    (``tpe._suggest_device``, which returns after its readback; a
+    relaunched speculation counts again).  Returns the rows and the
+    build's counts: states, trials and TPE suggests (from the flags: the
+    first 20 trials of each base run are random), dispatches, wall
+    seconds, seconds per state, wall ms per TPE trial (the whole build:
+    random trials, objectives, features and the shard's save included),
+    and host ms inside the suggests, their sum and the median of one."""
+    from hyperopt_tpu_torch.algos import tpe as ttpe
+
+    suggest_ms, built = [], []
+    real_dispatch, real_build = ttpe._suggest_device, ta.build_corpus
+
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        out = real_dispatch(*args, **kw)
+        suggest_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def recorded(*args, **kw):
+        built.append(real_build(*args, **kw))
+        return built[-1]
+
+    ttpe._suggest_device, ta.build_corpus = timed, recorded
+    try:
+        t0 = time.perf_counter()
+        rc = ta.main(["--device", device, "--domains", TRAIN_DOMAIN, "--seeds", str(len(seeds)),
+                      "--seed-offset", str(seeds[0]), "--configs", str(TRAIN_CONFIGS),
+                      "--cont-evals", str(TRAIN_CONT_EVALS), "--checkpoints",
+                      *map(str, TRAIN_CHECKPOINTS), "--rows-out", shard])
+        if device == "cuda":
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        ttpe._suggest_device, ta.build_corpus = real_dispatch, real_build
+    assert rc == 0 and len(built) == 1, rc
+    rows = built[0]
+    trials = len(seeds) * (max(TRAIN_CHECKPOINTS)
+                           + len(TRAIN_CHECKPOINTS) * TRAIN_CONFIGS * TRAIN_CONT_EVALS)
+    suggests = trials - 20 * len(seeds)
+    return rows, {"states": len(rows), "trials": trials, "suggests": suggests,
+                  "tpe_dispatches": len(suggest_ms), "seconds": seconds,
+                  "seconds_per_state": seconds / len(rows),
+                  "wall_ms_per_tpe_trial": seconds * 1e3 / suggests,
+                  "in_suggest_ms_total": sum(suggest_ms),
+                  "in_suggest_ms_median": float(np.median(suggest_ms))}
+
+
+@contextlib.contextmanager
+def keeping_kernel_inputs():
+    """Inside the block, ``tpe_device``'s pair-score kernel entry keeps
+    copies of the first and the last ``(z, params, k_below)`` it is given
+    at each distinct shape, in the dict it yields; the wrapper launches
+    nothing of its own."""
+    from hyperopt_tpu_torch.algos import tpe_device as td
+
+    real, kept = td.pair_score_batched, {}
+
+    def keeping(z, params, k_below):
+        key = (*z.shape, params.shape[-1], int(k_below))
+        case = (z.clone(), params.clone(), int(k_below))
+        kept.setdefault(key, [case, case])[1] = case
+        return real(z, params, k_below)
+
+    td.pair_score_batched = keeping
+    try:
+        yield kept
+    finally:
+        td.pair_score_batched = real
+
+
+def train_kernel_vs_plain(kept):
+    """Kernel #1 against its plain version on the inputs the corpus build
+    gave it (first and last of each shape), under ``TOLERANCE``."""
+    from hyperopt_tpu_torch.ops.pair_kernel import pair_score_batched
+    from hyperopt_tpu_torch.ops.score import pair_score
+
+    worst, shapes = 0.0, []
+    for (L, C, K, kb), cases in sorted(kept.items()):
+        for which, (z, params, k_below) in zip(("first", "last"), cases):
+            got = pair_score_batched(z, params, k_below)
+            ref = pair_score(z, params, k_below)
+            ref64 = pair_score(z.double(), params.double(), k_below)
+            torch.cuda.synchronize()
+            assert got.shape == ref.shape and bool(torch.isfinite(got).all()), (L, C, K, kb)
+            err = (got - ref).abs()
+            allow, plain_f32_err = allowance(ref, ref64)
+            row = {"L": L, "C": C, "kb": kb, "ka": K - kb, "case": which,
+                   "max_abs_err": float(err.max()), "plain_vs_f64_err": plain_f32_err,
+                   "ok": bool((err <= allow).all())}
+            emit("train_atpe_kernel_vs_plain", **row, tolerance=TOLERANCE)
+            assert row["ok"], row
+            worst = max(worst, row["max_abs_err"])
+        shapes.append([L, C, kb, K - kb])
+    return worst, shapes
+
+
+def trainer_suggest_split(T, ta, n=10, n_profiled=4):
+    """One TPE suggest of the corpus build alone, outside ``fmin``: the
+    shard's domain at seed 0's last checkpoint (45 trials), at each of the
+    grid's candidate counts; median host ms to the docs on the card and on
+    the CPU, and the card's CUDA kernels and device ms per suggest
+    (``torch.profiler``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hyperopt_tpu_torch.models import domains as zoo
+
+    d = zoo.get(TRAIN_DOMAIN)
+    docs = ta._run_base(d, 0, max(TRAIN_CHECKPOINTS), device="cuda").trials
+    out = {}
+    for c in ta.GRID["n_EI_candidates"]:
+        calls = {}
+        for dev in ("cuda", "cpu"):
+            trials, dom = T.trials_from_docs(copy.deepcopy(docs)), T.Domain(d.fn, d.space)
+            calls[dev] = partial(T.tpe.suggest, [len(docs)], dom, trials, n_EI_candidates=c,
+                                 device=dev)
+            calls[dev](seed=0)  # the history's first upload
+            ms = []
+            for i in range(n):
+                t0 = time.perf_counter()
+                calls[dev](seed=1 + i)
+                ms.append((time.perf_counter() - t0) * 1e3)
+            out[f"{dev}_c{c}_ms"] = float(np.median(ms))
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(n_profiled):
+                calls["cuda"](seed=1 + i)
+            torch.cuda.synchronize()
+        dev_events = [a for a in prof.key_averages() if str(a.device_type).endswith("CUDA")]
+        out[f"cuda_c{c}_kernels"] = sum(a.count for a in dev_events) / n_profiled
+        out[f"cuda_c{c}_device_ms"] = sum(
+            getattr(a, "self_device_time_total", 0.0) for a in dev_events) / 1e3 / n_profiled
+    return out
+
+
+def check_corpus_rows(ta, rows):
+    """Every feature finite, every label inside the grid's span, no torch
+    object anywhere in a row."""
+    from hyperopt_tpu_torch.algos.atpe import FEATURE_NAMES
+
+    g = ta.GRID
+    modes = dict(g["result_filtering"])
+    for feats, labels in rows:
+        assert all(math.isfinite(feats[k]) for k in FEATURE_NAMES), feats
+        for key in ("gamma", "prior_weight", "secondary_cutoff"):
+            assert min(g[key]) <= labels[key] <= max(g[key]), (key, labels[key])
+        assert math.log2(min(g["n_EI_candidates"])) <= labels["n_EI_candidates"] \
+            <= math.log2(max(g["n_EI_candidates"])), labels["n_EI_candidates"]
+        assert labels["result_filtering_mode"] in modes, labels["result_filtering_mode"]
+        assert min(modes.values()) <= labels["result_filtering_multiplier"] <= 1.0
+    assert ta._tensor_path(rows) is None, ta._tensor_path(rows)
+
+
+def phase_train_atpe(T, counters):
+    """``models.train_atpe``'s corpus build on the card: one shard of
+    ``many_dists`` at the sweep's per-shard flags (20 configs, 8
+    continuation evals, checkpoints 20 28 36 45), seeds 0-1 (the sweep runs
+    13): 8 rows, features finite, labels in the grid, no tensor, the shard
+    through ``save_rows``/``load_rows``, the pair-score kernel launched and
+    held against its plain version on the first and last inputs of each
+    shape the build gave it, the shipped artifacts untouched.  Then seed 0
+    alone with ``device="cpu"`` on this machine: seconds per state, wall ms
+    per TPE trial and the median host ms of one suggest each way (the card
+    builds first, so its program builds fall in its sum, not in the
+    median), and one suggest alone on each (``trainer_suggest_split``).  Where
+    sklearn is absent, a fitting run fails naming it before any row is
+    built."""
+    import hashlib
+
+    from hyperopt_tpu_torch.algos.atpe import DEFAULT_MODEL_DIR
+    from hyperopt_tpu_torch.models import train_atpe as ta
+
+    def digests():
+        return {f: hashlib.sha256(open(os.path.join(DEFAULT_MODEL_DIR, f), "rb").read())
+                .hexdigest() for f in sorted(os.listdir(DEFAULT_MODEL_DIR))}
+
+    t_phase = time.perf_counter()
+    shipped = digests()
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "train_atpe_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        import sklearn
+
+        sklearn_version = sklearn.__version__
+    except ImportError:
+        sklearn_version = None
+
+    for c in counters:
+        c.launches = 0
+    shard = os.path.join(work, f"{TRAIN_DOMAIN}.s0_{len(TRAIN_SEEDS)}.pkl")
+    with keeping_kernel_inputs() as kept:
+        rows, card = corpus_build(ta, TRAIN_SEEDS, "cuda", shard)
+    launches = {c.__name__: c.launches for c in counters}
+    check_corpus_rows(ta, rows)
+    kernel_err, kernel_shapes = train_kernel_vs_plain(kept)
+    round_trip = ta.load_rows([shard]) == rows
+
+    cpu_rows, cpu = corpus_build(ta, TRAIN_SEEDS[:1], "cpu",
+                                 os.path.join(work, f"{TRAIN_DOMAIN}.cpu.pkl"))
+    check_corpus_rows(ta, cpu_rows)
+    split = trainer_suggest_split(T, ta)
+
+    # where sklearn does not import, a fitting run fails naming it before
+    # any row is built (build_corpus is stubbed to count calls)
+    fit = {}
+    out = os.path.join(work, "artifacts")
+    if sklearn_version is None:
+        real_build, builds = ta.build_corpus, []
+        ta.build_corpus = lambda *a, **k: builds.append(a) or []
+        try:
+            ta.main(["--device", "cuda", "--domains", TRAIN_DOMAIN, "--seeds", "1",
+                     "--configs", "2", "--cont-evals", "2", "--checkpoints", "20",
+                     "--out", out])
+            fit["error"] = None
+        except RuntimeError as e:
+            fit["error"] = str(e)
+        finally:
+            ta.build_corpus = real_build
+        fit["builds_before_the_error"] = len(builds)
+    emit("train_atpe", domain=TRAIN_DOMAIN, seeds=list(TRAIN_SEEDS), configs=TRAIN_CONFIGS,
+         cont_evals=TRAIN_CONT_EVALS, checkpoints=list(TRAIN_CHECKPOINTS),
+         cut=f"seeds {TRAIN_SEEDS[0]}-{TRAIN_SEEDS[-1]} of the sweep's {TRAIN_SWEEP_SEEDS}",
+         card=card, cpu_seed0=cpu,
+         card_over_cpu_wall_ms_per_tpe_trial=card["wall_ms_per_tpe_trial"]
+         / cpu["wall_ms_per_tpe_trial"],
+         card_over_cpu_in_suggest_median=card["in_suggest_ms_median"]
+         / cpu["in_suggest_ms_median"], suggest_alone=split, launches=launches,
+         launches_per_suggest=launches["pair_score_batched"] / card["suggests"],
+         kernel_shapes_L_C_kb_ka=kernel_shapes, kernel_max_abs_err=kernel_err,
+         tolerance=TOLERANCE,
+         round_trip=round_trip, sklearn=sklearn_version is not None,
+         sklearn_version=sklearn_version, fit=fit,
+         shipped_artifacts_unchanged=digests() == shipped,
+         seconds=time.perf_counter() - t_phase)
+    assert len(rows) == len(TRAIN_SEEDS) * len(TRAIN_CHECKPOINTS), card
+    assert len(cpu_rows) == len(TRAIN_CHECKPOINTS)
+    assert card["tpe_dispatches"] >= card["suggests"] and cpu["tpe_dispatches"] >= cpu["suggests"]
+    assert round_trip and digests() == shipped
+    assert launches["pair_score_batched"] > 0, launches
+    if sklearn_version is None:
+        assert fit["error"] and "sklearn" in fit["error"] and not fit["builds_before_the_error"]
+        assert not os.path.exists(out)
+    shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
 def device_ms_per_launch(fn, names, iters=50):
     """Device time per call of ``fn`` of the kernels whose names hold one of
     ``names``, by ``torch.profiler``: the kernels alone, without the
@@ -3599,6 +3872,7 @@ def main():
     checkpoint_launches = phase_checkpoint(T, counters)
     phase_device_sample_batch(T)
     quality_launches = phase_quality(T, counters)
+    train_launches = phase_train_atpe(T, counters)
     launches = {**launches, "fused_suggest": fused_runs["0"][0]["fused_suggest"],
                 "pair_lse_partials": mesh_launches,
                 "fused_suggest_draw": fused_runs["1"][0]["fused_suggest"],
@@ -3614,6 +3888,8 @@ def main():
         r["launches_recompile_audit"] = audit_launches[r["name"]]
         r["launches_checkpoint"] = checkpoint_launches[r["name"]]
         r["launches_quality"] = quality_launches[r["name"]]
+        # the card's corpus build of the ATPE trainer's shard
+        r["launches_train_atpe"] = train_launches[r["name"]]
     assert "jax" not in sys.modules and not any(
         m == "hyperopt_tpu" or m.startswith("hyperopt_tpu.") for m in sys.modules)
     emit("total", seconds=time.perf_counter() - t_start)

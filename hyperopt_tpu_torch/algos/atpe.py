@@ -115,8 +115,8 @@ FILTER_MODES = ("none", "age", "loss_rank", "random")
 # shipped artifacts (hyperopt_tpu_torch/models/atpe_models/, a
 # byte-identical copy of hyperopt_tpu/models/atpe_models/) — the reference
 # ships hyperopt/atpe_models/{scaling_model.json, model-<target>.txt};
-# ours are sklearn pickles trained by hyperopt_tpu.models.train_atpe.
-# Where sklearn is absent every pickle fails to load and each target keeps
+# ours are sklearn pickles trained by hyperopt_tpu.models.train_atpe (the
+# port's models.train_atpe writes the same shape).  Where sklearn is absent every pickle fails to load and each target keeps
 # its heuristic rule (load_models)
 DEFAULT_MODEL_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -456,8 +456,8 @@ def locks_from_labels(domain, trials, locked):
     construction (the reference's per-parameter filtering/resampling
     semantics, ``hyperopt/atpe.py`` ~L300-700, rebuilt as posterior
     shaping).  Also used by the offline meta-model trainer
-    (``hyperopt_tpu.models.train_atpe``) so training and inference share
-    one lock semantics."""
+    (``hyperopt_tpu_torch.models.train_atpe``) so training and inference
+    share one lock semantics."""
     if not locked:
         return {}
     try:

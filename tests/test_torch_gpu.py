@@ -847,3 +847,41 @@ def test_checkpointed_fmin_on_card(cuda, tmp_path):
            show_progressbar=False)
     assert [d["misc"]["vals"] for d in resumed.trials] == [d["misc"]["vals"] for d in whole.trials]
     assert len(TrialsCheckpointer(path).restore().trials) == 24
+
+
+def test_train_atpe_corpus_build_launches_the_kernel_on_card(cuda, monkeypatch):
+    """``train_atpe.build_corpus`` at the ``--quick`` sizes on the card
+    (2 domains, seed 0, checkpoint 20, 6 configs of 6 continuation evals):
+    2 rows with finite features and labels inside the grid, no tensor in
+    a row, the pair-score kernel launched by the TPE suggests, and the
+    kernel equal to its plain version on the first input of each shape the
+    build gave it."""
+    import math
+
+    from hyperopt_tpu_torch.algos import tpe_device
+    from hyperopt_tpu_torch.algos.atpe import FEATURE_NAMES
+    from hyperopt_tpu_torch.models import train_atpe as ta
+
+    kept = {}
+
+    def keeping(z, params, k_below):
+        kept.setdefault((*z.shape, params.shape[-1], int(k_below)),
+                        (z.clone(), params.clone(), int(k_below)))
+        return pair_score_batched(z, params, k_below)
+
+    monkeypatch.setattr(tpe_device, "pair_score_batched", keeping)
+    before = pair_score_batched.launches
+    rows = ta.build_corpus(["quadratic1", "gauss_wave2"], [0], (20,), 6, 6,
+                           log=lambda line: None, device="cuda")
+    torch.cuda.synchronize()
+    assert pair_score_batched.launches > before
+    assert kept
+    for z, params, k_below in kept.values():
+        assert_close_to_plain(pair_score_batched(z, params, k_below),
+                              pair_score(z, params, k_below),
+                              pair_score(z.double(), params.double(), k_below))
+    assert len(rows) == 2 and ta._tensor_path(rows) is None
+    for feats, labels in rows:
+        assert all(math.isfinite(feats[k]) for k in FEATURE_NAMES)
+        assert min(ta.GRID["gamma"]) <= labels["gamma"] <= max(ta.GRID["gamma"])
+        assert labels["result_filtering_mode"] in dict(ta.GRID["result_filtering"])
