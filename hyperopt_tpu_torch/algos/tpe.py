@@ -48,6 +48,7 @@ import numpy as np
 import torch
 
 from .. import diagnostics as sdiag
+from .. import tracing
 from ..base import miscs_update_idxs_vals
 from ..device import on_suggest_stream, resolve_device, upload
 from ..ops import gmm as gmm_ops
@@ -383,110 +384,111 @@ def _suggest_device(
     dh = td.device_history_for(trials, domain.space, device, mesh=mesh)
     dev = dh.device
     with on_suggest_stream(dev):
-        dh.sync(hist)
-
-        mask = None
-        if trial_filter is not None:
-            mask = trial_filter(hist) if callable(trial_filter) else trial_filter
-            mask = np.asarray(mask, dtype=bool)
-            if mask.shape != hist.loss_tids.shape:
-                raise ValueError(
-                    f"trial_filter mask shape {mask.shape} != history "
-                    f"{hist.loss_tids.shape}"
-                )
-            if not mask.any():
-                mask = None
-        n_pending = len(pending) if pending else 0
-        n_eff = int(mask.sum()) if mask is not None else len(hist.losses) + n_pending
-        n_below = int(np.ceil(gamma * np.sqrt(n_eff)))
-        if linear_forgetting is not None:  # ap_split_trials gamma_cap semantics
-            n_below = min(n_below, int(linear_forgetting))
-        cap_b = parzen_ops.bucket(max(n_below, 1))
-        if pending:
-            losses_buf, hyp_views, keep_mask = dh.hypothetical_append(hist, list(pending))
-        else:
-            losses_buf, hyp_views, keep_mask = dh.losses, {}, dh.keep_mask(mask)
-
-        uniforms = _label_uniforms(seed, dh.n_labels, k * n_cand, dev)
-        # the tier is resolved once per suggest; only fused programs carry
-        # the in-kernel-draw switch, only sharded ones the mesh
-        if mesh is not None:
-            tier = {"scorer": "pallas", "mesh": mesh}
-        else:
-            scorer = resolve_scorer(dev)
-            tier = {"scorer": scorer}
-            if scorer == "fused":
-                tier["fused_draw"] = resolve_fused_draw()
-        specs = domain.space.specs
-
-        # hard locks: value pinned, posterior skipped (activity still derived)
-        hard = {}
-        if param_locks:
-            for lb, (center, radius) in param_locks.items():
-                if radius <= 0:
-                    spec = specs[lb]
-                    if spec.is_integer or spec.dist in ("randint", "categorical"):
-                        hard[lb] = np.full(k, int(round(center)), np.int64)
-                    else:
-                        hard[lb] = np.full(k, float(center), np.float64)
-
-        requests, req_fams = [], []
-        for fam in dh.families.values():
-            f_obs, f_pos, f_counts = hyp_views.get(fam.key, (fam.obs, fam.pos, fam.counts))
-            # basic indexing and one stack: a list index would be a blocking upload
-            u = torch.stack([uniforms[i] for i in fam.kis])
-            lock_c = np.zeros(fam.L, np.float32)
-            lock_r = np.full(fam.L, np.inf, np.float32)
-            if fam.key[0] == "cont":
-                priors = fam.default_priors
-                if param_locks:
-                    priors = priors.copy()
-                    for i, lb in enumerate(fam.labels):
-                        lock = param_locks.get(lb)
-                        if lock is None or lock[1] <= 0:
-                            continue
-                        center, radius = lock
-                        c_fit = (
-                            float(np.log(max(center, EPS)))
-                            if fam.log_scale
-                            else float(center)
-                        )
-                        lo = max(float(priors[i, 2]), c_fit - radius)
-                        hi = min(float(priors[i, 3]), c_fit + radius)
-                        if lo < hi:  # neighborhood inside support: narrow
-                            priors[i, 0] = np.clip(c_fit, lo, hi)
-                            priors[i, 1] = min(float(priors[i, 1]), 2.0 * radius)
-                            priors[i, 2], priors[i, 3] = lo, hi
-                            lock_c[i], lock_r[i] = c_fit, radius
-                st = dict(
-                    cap_b=cap_b, k=k, n_cand=n_cand, lf=lf,
-                    log_scale=fam.log_scale, quantized=fam.quantized,
-                    n_buckets=(_family_bucket_count(fam, k * n_cand)
-                               if fam.quantized else 0),
-                    **tier,
-                )
-                requests.append((
-                    "cont",
-                    (u, f_obs, f_pos, f_counts, losses_buf, keep_mask, n_below,
-                     float(np.float32(prior_weight)), upload(priors, dev),
-                     upload(lock_c, dev), upload(lock_r, dev)),
-                    st,
-                ))
+        with tracing.span("suggest.history") as sp:
+            sp.set_attr("n_new_rows", dh.sync(hist))
+        with tracing.span("suggest.build", n_families=len(dh.families), k=k, n_cand=n_cand):
+            mask = None
+            if trial_filter is not None:
+                mask = trial_filter(hist) if callable(trial_filter) else trial_filter
+                mask = np.asarray(mask, dtype=bool)
+                if mask.shape != hist.loss_tids.shape:
+                    raise ValueError(
+                        f"trial_filter mask shape {mask.shape} != history "
+                        f"{hist.loss_tids.shape}"
+                    )
+                if not mask.any():
+                    mask = None
+            n_pending = len(pending) if pending else 0
+            n_eff = int(mask.sum()) if mask is not None else len(hist.losses) + n_pending
+            n_below = int(np.ceil(gamma * np.sqrt(n_eff)))
+            if linear_forgetting is not None:  # ap_split_trials gamma_cap semantics
+                n_below = min(n_below, int(linear_forgetting))
+            cap_b = parzen_ops.bucket(max(n_below, 1))
+            if pending:
+                losses_buf, hyp_views, keep_mask = dh.hypothetical_append(hist, list(pending))
             else:
-                if param_locks:
-                    for i, lb in enumerate(fam.labels):
-                        lock = param_locks.get(lb)
-                        if lock is not None and lock[1] > 0:
-                            lock_c[i] = float(lock[0] - fam.offsets[i])
-                            lock_r[i] = float(lock[1])
-                requests.append((
-                    "idx",
-                    (u, f_obs, f_pos, f_counts, losses_buf, keep_mask, n_below,
-                     float(np.float32(prior_weight)), upload(fam.prior_p, dev),
-                     upload(lock_c, dev), upload(lock_r, dev)),
-                    dict(cap_b=cap_b, upper=fam.upper, k=k, n_cand=n_cand, lf=lf),
-                ))
-            req_fams.append(fam)
+                losses_buf, hyp_views, keep_mask = dh.losses, {}, dh.keep_mask(mask)
+
+            uniforms = _label_uniforms(seed, dh.n_labels, k * n_cand, dev)
+            # the tier is resolved once per suggest; only fused programs carry
+            # the in-kernel-draw switch, only sharded ones the mesh
+            if mesh is not None:
+                tier = {"scorer": "pallas", "mesh": mesh}
+            else:
+                scorer = resolve_scorer(dev)
+                tier = {"scorer": scorer}
+                if scorer == "fused":
+                    tier["fused_draw"] = resolve_fused_draw()
+            specs = domain.space.specs
+
+            # hard locks: value pinned, posterior skipped (activity still derived)
+            hard = {}
+            if param_locks:
+                for lb, (center, radius) in param_locks.items():
+                    if radius <= 0:
+                        spec = specs[lb]
+                        if spec.is_integer or spec.dist in ("randint", "categorical"):
+                            hard[lb] = np.full(k, int(round(center)), np.int64)
+                        else:
+                            hard[lb] = np.full(k, float(center), np.float64)
+
+            requests, req_fams = [], []
+            for fam in dh.families.values():
+                f_obs, f_pos, f_counts = hyp_views.get(fam.key, (fam.obs, fam.pos, fam.counts))
+                # basic indexing and one stack: a list index would be a blocking upload
+                u = torch.stack([uniforms[i] for i in fam.kis])
+                lock_c = np.zeros(fam.L, np.float32)
+                lock_r = np.full(fam.L, np.inf, np.float32)
+                if fam.key[0] == "cont":
+                    priors = fam.default_priors
+                    if param_locks:
+                        priors = priors.copy()
+                        for i, lb in enumerate(fam.labels):
+                            lock = param_locks.get(lb)
+                            if lock is None or lock[1] <= 0:
+                                continue
+                            center, radius = lock
+                            c_fit = (
+                                float(np.log(max(center, EPS)))
+                                if fam.log_scale
+                                else float(center)
+                            )
+                            lo = max(float(priors[i, 2]), c_fit - radius)
+                            hi = min(float(priors[i, 3]), c_fit + radius)
+                            if lo < hi:  # neighborhood inside support: narrow
+                                priors[i, 0] = np.clip(c_fit, lo, hi)
+                                priors[i, 1] = min(float(priors[i, 1]), 2.0 * radius)
+                                priors[i, 2], priors[i, 3] = lo, hi
+                                lock_c[i], lock_r[i] = c_fit, radius
+                    st = dict(
+                        cap_b=cap_b, k=k, n_cand=n_cand, lf=lf,
+                        log_scale=fam.log_scale, quantized=fam.quantized,
+                        n_buckets=(_family_bucket_count(fam, k * n_cand)
+                                   if fam.quantized else 0),
+                        **tier,
+                    )
+                    requests.append((
+                        "cont",
+                        (u, f_obs, f_pos, f_counts, losses_buf, keep_mask, n_below,
+                         float(np.float32(prior_weight)), upload(priors, dev),
+                         upload(lock_c, dev), upload(lock_r, dev)),
+                        st,
+                    ))
+                else:
+                    if param_locks:
+                        for i, lb in enumerate(fam.labels):
+                            lock = param_locks.get(lb)
+                            if lock is not None and lock[1] > 0:
+                                lock_c[i] = float(lock[0] - fam.offsets[i])
+                                lock_r[i] = float(lock[1])
+                    requests.append((
+                        "idx",
+                        (u, f_obs, f_pos, f_counts, losses_buf, keep_mask, n_below,
+                         float(np.float32(prior_weight)), upload(fam.prior_p, dev),
+                         upload(lock_c, dev), upload(lock_r, dev)),
+                        dict(cap_b=cap_b, upper=fam.upper, k=k, n_cand=n_cand, lf=lf),
+                    ))
+                req_fams.append(fam)
 
     def finish_outs(outs, diag=None):
         chosen_vals = {}
@@ -496,7 +498,8 @@ def _suggest_device(
                 if lb not in hard:
                     chosen_vals[lb] = fam.from_fit_space(i, best[i])
         chosen_vals.update(hard)
-        docs = _emit_docs(new_ids, domain, trials, chosen_vals, k)
+        with tracing.span("suggest.emit", k=k):
+            docs = _emit_docs(new_ids, domain, trials, chosen_vals, k)
         if diag is not None and sdiag.enabled():
             # published after the docs are built: a finish that raises
             # leaves nothing for a later suggest to claim
@@ -513,10 +516,12 @@ def _suggest_device(
     if prepare:
         return requests, finish_outs
 
-    resolve_fetch = td.multi_family_suggest_async(requests)
+    with tracing.span("suggest.launch", n_families=len(requests)):
+        resolve_fetch = td.multi_family_suggest_async(requests)
 
     def finish():
-        outs = resolve_fetch()
+        with tracing.span("suggest.readback"):
+            outs = resolve_fetch()
         return finish_outs(outs, diag=resolve_fetch.diag)
 
     return finish if defer else finish()
@@ -737,7 +742,9 @@ def _suggest_impl(
 ):
     # a degenerate mesh resolves to None here, before anything is keyed
     mesh, dev = resolve_mesh_device(mesh, device)
-    hist = trials.history
+    with tracing.span("suggest.history") as sp:
+        hist = trials.history
+        sp.set_attr("n_hist", len(hist.losses))
     # Startup gate on ALL inserted non-error trials (reference semantics:
     # ``len(trials.trials)``), not completed-OK count; random suggest also
     # while the OK history is empty (nothing to fit a posterior on).

@@ -241,6 +241,8 @@ class DeviceHistory:
     # -- sync ----------------------------------------------------------
     @_on_stream
     def sync(self, hist):
+        """Bring the device copy up to ``hist``; returns the number of
+        history rows it uploaded (0 when already in sync)."""
         n = len(hist.losses)
         # O(1) steady state: _TrialsHistory bumps ``content_version`` on
         # every array commit and records the last NON-append-only commit
@@ -251,7 +253,7 @@ class DeviceHistory:
         same_hist = self._synced_hist() is hist
         ver = getattr(hist, "content_version", None)
         if ver is not None and same_hist and ver == self._seen_content_version:
-            return
+            return 0
         if (
             ver is not None
             and same_hist
@@ -271,12 +273,14 @@ class DeviceHistory:
                     hist.losses[: self._n_synced], self._losses_synced, equal_nan=True
                 )
             )
+        n_new = n if not appended else n - self._n_synced
         if not appended:
             self._rebuild(hist)
         elif n > self._n_synced:
             self._append(hist)
         self._seen_content_version = ver
         self._synced_hist = weakref.ref(hist)
+        return n_new
 
     def _upload(self, arr):
         return upload(arr, self.device)

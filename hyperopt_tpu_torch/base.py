@@ -26,6 +26,7 @@ import numbers
 
 import numpy as np
 
+from . import tracing
 from .exceptions import (
     AllTrialsFailed,
     InvalidLoss,
@@ -254,6 +255,9 @@ class _TrialsHistory:
         return ok, ls_sorted[pos[ok]]
 
     def maybe_rebuild(self, trials_obj):
+        """Bring the cache up to ``trials_obj``; returns what it did:
+        "skipped", "unchanged", "appended" or "rebuilt" (the ``rebuild``
+        attribute of a ``trials.refresh`` span)."""
         # Revision fast path: ``Trials`` bumps ``_revision`` in
         # ``refresh()`` — the sole point where ``_trials`` (what this
         # cache reads) changes — so an unchanged revision means the
@@ -267,7 +271,7 @@ class _TrialsHistory:
         # serial_evaluate all end mutations with a refresh).
         rev = getattr(trials_obj, "_revision", None)
         if rev is not None and rev == self._seen_revision:
-            return
+            return "skipped"
         # One pass over the docs collects the completed-OK (tid, loss)
         # pairs; they double as the change fingerprint.  In the steady
         # state (history grew by k trials) the per-label SoA columns are
@@ -293,7 +297,7 @@ class _TrialsHistory:
         fingerprint = (len(kept), fp_tids.tobytes(), fp_losses.tobytes())
         if fingerprint == self._fingerprint:
             self._seen_revision = rev
-            return
+            return "unchanged"
 
         n_prev = len(self.loss_tids)
         append_only = (
@@ -338,6 +342,7 @@ class _TrialsHistory:
         if not append_only:
             self.last_nonappend_version = self.content_version
         self._seen_revision = rev
+        return "appended" if append_only else "rebuilt"
 
 
 class Trials:
@@ -455,18 +460,19 @@ class Trials:
         # pre-revision checkpoints lack the attribute — trials_save_file
         # resume must keep working)
         self._revision = getattr(self, "_revision", 0) + 1
-        if self._exp_key is None:
-            self._trials = [
-                tt for tt in self._dynamic_trials if tt["state"] != JOB_STATE_ERROR
-            ]
-        else:
-            self._trials = [
-                tt
-                for tt in self._dynamic_trials
-                if tt["state"] != JOB_STATE_ERROR and tt["exp_key"] == self._exp_key
-            ]
-        self._ids.update([tt["tid"] for tt in self._trials])
-        self._history.maybe_rebuild(self)
+        with tracing.span("trials.refresh", n_docs=len(self._dynamic_trials)) as sp:
+            if self._exp_key is None:
+                self._trials = [
+                    tt for tt in self._dynamic_trials if tt["state"] != JOB_STATE_ERROR
+                ]
+            else:
+                self._trials = [
+                    tt
+                    for tt in self._dynamic_trials
+                    if tt["state"] != JOB_STATE_ERROR and tt["exp_key"] == self._exp_key
+                ]
+            self._ids.update([tt["tid"] for tt in self._trials])
+            sp.set_attr("rebuild", self._history.maybe_rebuild(self))
 
     @property
     def history(self):
@@ -712,6 +718,7 @@ class Trials:
         retry_policy=None,
         fault_stats=None,
         search_stats=None,
+        tracer=None,
     ):
         """Minimize ``fn`` over ``space`` using this store (see ``fmin``)."""
         from .fmin import fmin as _fmin  # local import: avoid circularity
@@ -739,6 +746,7 @@ class Trials:
             retry_policy=retry_policy,
             fault_stats=fault_stats,
             search_stats=search_stats,
+            tracer=tracer,
         )
 
 

@@ -32,7 +32,7 @@ from timeit import default_timer as timer
 
 import numpy as np
 
-from . import diagnostics, progress
+from . import diagnostics, progress, tracing
 from .base import (
     JOB_STATE_DONE,
     JOB_STATE_ERROR,
@@ -101,6 +101,18 @@ def generate_trials_to_calculate(points):
     )
 
 
+@contextlib.contextmanager
+def _traced_iteration(tracer, n_trials):
+    """One loop iteration as one trace: bound to this thread under the root
+    span ``fmin.trial``, handed to ``tracer`` as the iteration ends."""
+    trace = tracer.begin()
+    try:
+        with tracing.use_trace(trace), tracing.span("fmin.trial", n_trials=n_trials):
+            yield
+    finally:
+        tracer.finish(trace)
+
+
 class FMinIter:
     """The suggest → evaluate → refresh loop, sync or async."""
 
@@ -129,8 +141,12 @@ class FMinIter:
         retry_policy=None,
         fault_stats=None,
         search_stats=None,
+        tracer=None,
     ):
         self.algo = algo
+        # a tracing.Tracer: each loop iteration becomes one trace
+        # (_traced_iteration); None binds nothing
+        self.tracer = tracer
         self.domain = domain
         self.trials = trials
         self.retry_policy = retry_policy
@@ -236,14 +252,15 @@ class FMinIter:
         retry.TrialQuarantined` after ``max_attempts``, which the callers
         turn into ``JOB_STATE_ERROR`` while the run goes on.  Reference:
         ``hyperopt_tpu/fmin.py:229-248``."""
-        if self.retry_policy is None:
-            return self.domain.evaluate(spec, ctrl)
-        result, attempts = execute_with_retry(
-            lambda: self.domain.evaluate(spec, ctrl),
-            self.retry_policy,
-            key=trial["tid"],
-            stats=self.fault_stats,
-        )
+        with tracing.span("fmin.objective", tid=trial["tid"]):
+            if self.retry_policy is None:
+                return self.domain.evaluate(spec, ctrl)
+            result, attempts = execute_with_retry(
+                lambda: self.domain.evaluate(spec, ctrl),
+                self.retry_policy,
+                key=trial["tid"],
+                stats=self.fault_stats,
+            )
         trial["misc"]["attempts"] = attempts
         return result
 
@@ -299,6 +316,10 @@ class FMinIter:
         is a daemon and the main thread's join is signal-interruptible, so
         Ctrl-C still aborts fmin mid-objective.  Reference:
         ``hyperopt_tpu/fmin.py:291-380``."""
+        # the iteration's trace (None untraced) follows the objective into
+        # its worker, under the iteration's root span
+        trace = tracing.current_trace()
+        root = trace.root if trace is not None else None
         for trial in self.trials._dynamic_trials:
             if trial["state"] != JOB_STATE_NEW:
                 continue
@@ -312,7 +333,8 @@ class FMinIter:
 
             def _evaluate(spec=spec, ctrl=ctrl, box=box, trial=trial):
                 try:
-                    box["result"] = self._evaluate_trial(spec, ctrl, trial)
+                    with tracing.use_trace(trace, parent=root):
+                        box["result"] = self._evaluate_trial(spec, ctrl, trial)
                 except BaseException as e:
                     box["error"] = e
 
@@ -335,7 +357,8 @@ class FMinIter:
                     engine.discard()
             finally:
                 # even a non-Exception failure must not abandon the trial
-                worker.join()
+                with tracing.span("pipeline.join"):
+                    worker.join()
             if "error" in box:
                 e = box["error"]
                 if not isinstance(e, Exception):
@@ -463,131 +486,145 @@ class FMinIter:
                 # block until all queued trials finish
                 or (block_until_done and not all_trials_complete)
             ):
-                qlen = get_queue_len()
-                while (
-                    qlen < self.max_queue_len and n_queued < N and not self.is_cancelled
-                ):
-                    n_to_enqueue = min(self.max_queue_len - qlen, N - n_queued)
-                    if engine is not None:
-                        # a validated speculation when one is pending
-                        # (readback only), else computed in line
-                        with self.timings.phase("suggest"):
-                            new_trials, new_ids = engine.next_batch(n_to_enqueue)
-                    else:
-                        new_ids = trials.new_trial_ids(n_to_enqueue)
-                        self.trials.refresh()
-                        seed = self.rstate.integers(2 ** 31 - 1)
-                        with self.timings.phase("suggest"):
-                            # a CUDA error re-initializes and retries
-                            # (bounded) rather than abort the run
-                            new_trials = self.device_recovery.run(
-                                lambda: algo(new_ids, self.domain, trials, seed)
-                            )
-                    # the suggest's search-health snapshot (None for
-                    # random/startup suggests), published on this thread
-                    self.search_stats.record_suggest(diagnostics.last_suggest_diag())
-                    if new_trials is None:
-                        stopped = True
-                        break
-                    assert len(new_ids) >= len(new_trials)
-                    if len(new_trials):
-                        self.trials.insert_trial_docs(new_trials)
-                        self.trials.refresh()
-                        n_queued += len(new_trials)
-                        qlen = get_queue_len()
-                    else:
-                        stopped = True
-                        break
-
-                if self.is_cancelled:
-                    break
-
-                if self.asynchronous:
-                    if engine is not None:
-                        try:
-                            # prefetch the next suggestion(s) while the
-                            # backend's workers evaluate
-                            engine.speculate(limit=N - n_queued)
-                        except Exception as spec_err:
-                            logger.exception(
-                                "speculative dispatch failed; continuing "
-                                "without prefetch"
-                            )
-                            self.device_recovery.absorb(spec_err)
-                            engine.discard()
-                    # wait for workers to fill in the trials
-                    time.sleep(self.poll_interval_secs)
-                else:
-                    # run the trials synchronously in this process
-                    with self.timings.phase("evaluate"):
+                # without a tracer the shared no-op span: nothing is bound
+                with (tracing.NULL_SPAN if self.tracer is None
+                      else _traced_iteration(self.tracer, len(self.trials))):
+                    qlen = get_queue_len()
+                    while (
+                        qlen < self.max_queue_len and n_queued < N and not self.is_cancelled
+                    ):
+                        n_to_enqueue = min(self.max_queue_len - qlen, N - n_queued)
                         if engine is not None:
-                            self._serial_evaluate_pipelined(engine, budget=N - n_queued)
+                            # a validated speculation when one is pending
+                            # (readback only), else computed in line
+                            with self.timings.phase("suggest", span="fmin.suggest") as sp:
+                                sp.set_attr("path", "speculated")
+                                new_trials, new_ids = engine.next_batch(n_to_enqueue)
                         else:
-                            self.serial_evaluate()
+                            new_ids = trials.new_trial_ids(n_to_enqueue)
+                            self.trials.refresh()
+                            seed = self.rstate.integers(2 ** 31 - 1)
+                            with self.timings.phase("suggest", span="fmin.suggest") as sp:
+                                sp.set_attr("path", "sync")
+                                # a CUDA error re-initializes and retries
+                                # (bounded) rather than abort the run
+                                new_trials = self.device_recovery.run(
+                                    lambda: algo(new_ids, self.domain, trials, seed)
+                                )
+                        # the suggest's search-health snapshot (None for
+                        # random/startup suggests), published on this thread
+                        with tracing.span("fmin.health"):
+                            self.search_stats.record_suggest(diagnostics.last_suggest_diag())
+                        if new_trials is None:
+                            stopped = True
+                            break
+                        assert len(new_ids) >= len(new_trials)
+                        if len(new_trials):
+                            with tracing.span("fmin.insert", n_docs=len(new_trials)):
+                                self.trials.insert_trial_docs(new_trials)
+                                self.trials.refresh()
+                            n_queued += len(new_trials)
+                            qlen = get_queue_len()
+                        else:
+                            stopped = True
+                            break
 
-                self.trials.refresh()
-                # this round's completions (OK losses, NaN included, and
-                # the error count) into the run's search health
-                self.search_stats.observe_trials(self.trials)
-                if self.trials_save_file != "":
-                    if self._orbax_ckpt is not None:
-                        self._orbax_ckpt.save(self.trials)
+                    if self.is_cancelled:
+                        break
+
+                    if self.asynchronous:
+                        if engine is not None:
+                            try:
+                                # prefetch the next suggestion(s) while the
+                                # backend's workers evaluate
+                                engine.speculate(limit=N - n_queued)
+                            except Exception as spec_err:
+                                logger.exception(
+                                    "speculative dispatch failed; continuing "
+                                    "without prefetch"
+                                )
+                                self.device_recovery.absorb(spec_err)
+                                engine.discard()
+                        # wait for workers to fill in the trials
+                        time.sleep(self.poll_interval_secs)
                     else:
-                        # fsync'd write-then-rename: a crash mid-save never
-                        # tears the checkpoint the next run resumes from
-                        from .checkpoint import atomic_pickle_dump
+                        # run the trials synchronously in this process
+                        with self.timings.phase("evaluate", span="fmin.evaluate"):
+                            if engine is not None:
+                                self._serial_evaluate_pipelined(engine, budget=N - n_queued)
+                            else:
+                                self.serial_evaluate()
 
-                        atomic_pickle_dump(
-                            self.trials,
-                            self.trials_save_file,
-                            protocol=self.pickle_protocol,
-                        )
-                if self.early_stop_fn is not None:
-                    stop, kwargs = self.early_stop_fn(
-                        self.trials, *self.early_stop_args
-                    )
-                    self.early_stop_args = kwargs
-                    if stop:
-                        logger.info(
-                            "Early stop triggered from %s", self.early_stop_fn.__name__
-                        )
-                        stopped = True
+                    self.trials.refresh()
+                    # this round's completions (OK losses, NaN included, and
+                    # the error count) into the run's search health
+                    with tracing.span("fmin.health"):
+                        self.search_stats.observe_trials(self.trials)
+                    if self.trials_save_file != "":
+                        if self._orbax_ckpt is not None:
+                            with tracing.span("fmin.checkpoint", kind="orbax"):
+                                self._orbax_ckpt.save(self.trials)
+                        else:
+                            # fsync'd write-then-rename: a crash mid-save never
+                            # tears the checkpoint the next run resumes from
+                            from .checkpoint import atomic_pickle_dump
 
-                n_unfinished = get_n_unfinished()
-                if n_unfinished == 0:
-                    all_trials_complete = True
+                            with tracing.span("fmin.checkpoint", kind="pickle"):
+                                atomic_pickle_dump(
+                                    self.trials,
+                                    self.trials_save_file,
+                                    protocol=self.pickle_protocol,
+                                )
+                    if self.early_stop_fn is not None:
+                        with tracing.span("fmin.early_stop"):
+                            stop, kwargs = self.early_stop_fn(
+                                self.trials, *self.early_stop_args
+                            )
+                        self.early_stop_args = kwargs
+                        if stop:
+                            logger.info(
+                                "Early stop triggered from %s", self.early_stop_fn.__name__
+                            )
+                            stopped = True
 
-                n_done = get_n_done()
-                n_okay = n_done - initial_n_done
-                progress_ctx.update(n_okay - n_displayed)
-                n_displayed = n_okay
+                    # the iteration's scans over every document: state counts,
+                    # progress and the best loss
+                    with tracing.span("fmin.scan", n_docs=len(self.trials)):
+                        n_unfinished = get_n_unfinished()
+                        if n_unfinished == 0:
+                            all_trials_complete = True
 
-                # update progress bar with the best loss so far
-                losses = [
-                    loss
-                    for loss, status in zip(
-                        self.trials.losses(), self.trials.statuses()
-                    )
-                    if status == STATUS_OK and loss is not None
-                ]
-                if losses:
-                    new_best = min(losses)
-                    if new_best < best_loss:
-                        best_loss = new_best
-                        progress_ctx.postfix = f"best loss: {best_loss}"
-                    if (
-                        self.loss_threshold is not None
-                        and best_loss <= self.loss_threshold
+                        n_done = get_n_done()
+                        n_okay = n_done - initial_n_done
+                        progress_ctx.update(n_okay - n_displayed)
+                        n_displayed = n_okay
+
+                        # update progress bar with the best loss so far
+                        losses = [
+                            loss
+                            for loss, status in zip(
+                                self.trials.losses(), self.trials.statuses()
+                            )
+                            if status == STATUS_OK and loss is not None
+                        ]
+                        if losses:
+                            new_best = min(losses)
+                            if new_best < best_loss:
+                                best_loss = new_best
+                                progress_ctx.postfix = f"best loss: {best_loss}"
+                            if (
+                                self.loss_threshold is not None
+                                and best_loss <= self.loss_threshold
+                            ):
+                                stopped = True
+
+                    if self.timeout is not None and (
+                        timer() - self.start_time >= self.timeout
                     ):
                         stopped = True
 
-                if self.timeout is not None and (
-                    timer() - self.start_time >= self.timeout
-                ):
-                    stopped = True
-
-                if stopped:
-                    break
+                    if stopped:
+                        break
 
             if block_until_done:
                 self.block_until_done()
@@ -630,6 +667,7 @@ def fmin(
     retry_policy=None,
     fault_stats=None,
     search_stats=None,
+    tracer=None,
 ):
     """Minimize ``fn`` over ``space`` — the reference's full signature.
 
@@ -681,6 +719,13 @@ def fmin(
     (:class:`~hyperopt_tpu_torch.checkpoint.TrialsCheckpointer`); any
     other ``trials_save_file`` is a pickle checkpoint.  Either way the
     next run resumes from it.
+
+    ``tracer``: a :class:`~hyperopt_tpu_torch.tracing.Tracer`; each loop
+    iteration becomes one trace whose spans split the loop's host time
+    (suggest, insert, evaluate, refreshes, scans, the pipeline's and the
+    suggest's stages), sampled and logged as the tracer says
+    (``docs/torch_fmin_spans.md``).  None, the default,
+    binds nothing.
     """
     if validate_space:
         from .analysis import Severity, lint_space
@@ -759,6 +804,7 @@ def fmin(
             retry_policy=retry_policy,
             fault_stats=fault_stats,
             search_stats=search_stats,
+            tracer=tracer,
         )
 
     if trials is None:
@@ -796,6 +842,7 @@ def fmin(
         retry_policy=retry_policy,
         fault_stats=fault_stats,
         search_stats=search_stats,
+        tracer=tracer,
     )
     rval.catch_eval_exceptions = catch_eval_exceptions
     rval.exhaust()

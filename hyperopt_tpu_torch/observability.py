@@ -7,9 +7,11 @@ Reference parity: ``hyperopt_tpu/observability.py``, ``ServiceStats``
 included (``:361-737``).  Every metric name and label is the
 reference's, so a scraper of the JAX package reads the port unchanged;
 the one difference is the identity gauge, whose labels name torch and
-CUDA (:func:`build_info`).  :func:`traced_suggest`, :func:`annotate` and
-``profiling.ProfileCapture`` use ``torch.profiler`` where the reference
-uses ``jax.profiler``.
+CUDA (:func:`build_info`).  The reference's ``traced_suggest`` and
+``annotate`` (``jax.profiler`` hooks) have no counterpart: the bounded
+``torch.profiler`` capture is ``profiling.ProfileCapture``, and the fmin
+loop's host time splits into ``tracing`` spans (``fmin(tracer=...)``,
+``docs/torch_fmin_spans.md``).
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ import threading
 import time
 from collections import defaultdict
 from functools import wraps
+
+from . import tracing
 
 logger = logging.getLogger(__name__)
 
@@ -36,12 +40,20 @@ class PhaseTimings:
         self._count = defaultdict(int)
 
     @contextlib.contextmanager
-    def phase(self, name):
-        t0 = time.perf_counter()
+    def phase(self, name, span=None):
+        """Time the block under ``name`` on ``time.monotonic()``.  With
+        ``span`` given and a trace bound to this thread, the block is also
+        a tracing span of that name (the ``with`` target; else the no-op
+        span), and the phase takes the span's own clock reads: the spans'
+        and the phase's totals agree exactly."""
+        sp = tracing.NULL_SPAN
+        t0 = time.monotonic()
         try:
-            yield
+            with tracing.span(span) if span is not None else tracing.NULL_SPAN as sp:
+                yield sp
         finally:
-            self.record(name, time.perf_counter() - t0)
+            seconds = sp.duration_s
+            self.record(name, time.monotonic() - t0 if seconds is None else seconds)
 
     def record(self, name, seconds):
         with self._lock:
@@ -1864,33 +1876,3 @@ def timed_suggest(algo, timings: PhaseTimings):
             return algo(new_ids, domain, trials, seed, *args, **kwargs)
 
     return wrapper
-
-
-def traced_suggest(algo, log_dir):
-    """Wrap a suggest function in a ``torch.profiler`` capture so its CUDA
-    kernels appear in a Chrome trace (Perfetto, ``chrome://tracing``)
-    written under ``log_dir``, one file per call."""
-    import torch
-
-    @wraps(algo)
-    def wrapper(new_ids, domain, trials, seed, *args, **kwargs):
-        activities = [torch.profiler.ProfilerActivity.CPU]
-        if torch.cuda.is_available():
-            activities.append(torch.profiler.ProfilerActivity.CUDA)
-        with torch.profiler.profile(
-            activities=activities,
-            on_trace_ready=torch.profiler.tensorboard_trace_handler(str(log_dir)),
-        ):
-            return algo(new_ids, domain, trials, seed, *args, **kwargs)
-
-    return wrapper
-
-
-@contextlib.contextmanager
-def annotate(name):
-    """Named region visible in device profiles
-    (``torch.profiler.record_function``)."""
-    import torch
-
-    with torch.profiler.record_function(name):
-        yield

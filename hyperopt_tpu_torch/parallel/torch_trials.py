@@ -147,6 +147,7 @@ class TorchTrials(Trials):
         retry_policy=None,
         fault_stats=None,
         search_stats=None,
+        tracer=None,
     ):
         from ..fmin import fmin as _fmin
 
@@ -205,6 +206,7 @@ class TorchTrials(Trials):
                 retry_policy=retry_policy,
                 fault_stats=fault_stats,
                 search_stats=search_stats,
+                tracer=tracer,
             )
         finally:
             state.stop()

@@ -80,6 +80,7 @@ from functools import partial
 
 import numpy as np
 
+from . import tracing
 from .base import JOB_STATE_NEW, JOB_STATE_RUNNING
 from .observability import SpeculationStats
 
@@ -334,12 +335,13 @@ class SpeculativeSuggestEngine:
         """Relaunch every pending speculation the current history has
         invalidated (same ids, same seed, fresh history).  ``exposed``:
         the caller is on the fmin loop's critical path (consume time), so
-        relaunch cost must not be booked as hidden time."""
+        relaunch cost must not be booked as hidden time.  Returns how many
+        speculations it invalidated."""
         with self._pending_lock:
             if not self._pending:
-                return
+                return 0
             if all(self._still_valid(sp.snap) for sp in self._pending):
-                return
+                return 0
             # the speculations were issued against successive rstate
             # draws in trial order; one stale γ-split invalidates them
             # all (each later speculation was fit on the same stale
@@ -375,6 +377,7 @@ class SpeculativeSuggestEngine:
                 time.perf_counter() - t0, hypothesis=snap[0] == "hyp",
                 exposed=exposed,
             )
+        return len(stale)
 
     # -- dispatch ------------------------------------------------------
     def _call_algo_sync(self, ids, seed):
@@ -445,7 +448,7 @@ class SpeculativeSuggestEngine:
             # every completed trial would invalidate a strict speculation
             # (see module docstring): don't burn the work, stay serial
             return
-        with self._dispatch_lock:
+        with self._dispatch_lock, tracing.span("pipeline.speculate") as span:
             # the fmin loop may have completed trials since the last refresh
             # (several NEW trials evaluated back-to-back, e.g.
             # points_to_evaluate warm starts): validation and the pending
@@ -453,7 +456,9 @@ class SpeculativeSuggestEngine:
             # unsynced trial is neither in the history nor hypothesized
             # and a relaunched speculation silently loses its observation
             self.trials.refresh()
-            self._validate()
+            with tracing.span("pipeline.validate") as vspan:
+                vspan.set_attr("n_invalidated", self._validate())
+            n_launched = n_hypothesis = 0
             while True:
                 with self._pending_lock:
                     if len(self._pending) >= cap:
@@ -483,6 +488,10 @@ class SpeculativeSuggestEngine:
                 self.stats.record_dispatch(
                     time.perf_counter() - t0, hypothesis=snap[0] == "hyp"
                 )
+                n_launched += 1
+                n_hypothesis += snap[0] == "hyp"
+            span.set_attr("n_launched", n_launched)
+            span.set_attr("hypothesis", n_hypothesis)
 
     # -- consumption ---------------------------------------------------
     def next_batch(self, n):
@@ -494,7 +503,8 @@ class SpeculativeSuggestEngine:
         new_ids)``; ``new_trials`` is None when the algorithm signalled a
         stop and nothing was produced."""
         with self._dispatch_lock:
-            self._validate(exposed=True)
+            with tracing.span("pipeline.validate") as vspan:
+                vspan.set_attr("n_invalidated", self._validate(exposed=True))
             docs, ids = [], []
             while True:
                 with self._pending_lock:
@@ -505,7 +515,8 @@ class SpeculativeSuggestEngine:
                     sp = self._pending.popleft()
                 t0 = time.perf_counter()
                 try:
-                    out = sp.resolve()
+                    with tracing.span("pipeline.resolve"):
+                        out = sp.resolve()
                     self.stats.record_resolve(time.perf_counter() - t0)
                 except Exception as readback_err:
                     # the card reports a kernel's fault at the readback's
@@ -522,7 +533,8 @@ class SpeculativeSuggestEngine:
                         self.device_recovery.absorb(readback_err)
                     self.discard()
                     t1 = time.perf_counter()
-                    out = self._call_algo_sync(sp.ids, sp.seed)
+                    with tracing.span("pipeline.sync_suggest"):
+                        out = self._call_algo_sync(sp.ids, sp.seed)
                     self.stats.record_sync(time.perf_counter() - t1)
                 if out is None:
                     return (docs if docs else None), ids
@@ -540,7 +552,8 @@ class SpeculativeSuggestEngine:
                     self.trials.refresh()
                     seed = int(self.rstate.integers(2 ** 31 - 1))
                 t0 = time.perf_counter()
-                out = self._call_algo_sync(fresh, seed)
+                with tracing.span("pipeline.sync_suggest"):
+                    out = self._call_algo_sync(fresh, seed)
                 self.stats.record_sync(time.perf_counter() - t0)
                 if out is None:
                     return (docs if docs else None), ids + fresh

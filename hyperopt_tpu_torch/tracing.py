@@ -69,10 +69,12 @@ class Span:
     Created through :func:`span` / :meth:`Trace.record_span`, never
     directly.  ``t0``/``t1`` are ``time.monotonic()`` seconds; the log
     record stores offsets from the trace start so readers never compare
-    monotonic clocks across processes.
+    monotonic clocks across processes.  ``thread`` is the name of the
+    thread that opened the span (one trace can span the fmin loop's
+    thread and its objective's worker).
     """
 
-    __slots__ = ("name", "span_id", "parent_id", "t0", "t1", "attrs")
+    __slots__ = ("name", "span_id", "parent_id", "t0", "t1", "attrs", "thread")
 
     def __init__(self, name, span_id, parent_id, t0, attrs=None):
         self.name = name
@@ -81,6 +83,7 @@ class Span:
         self.t0 = t0
         self.t1 = None
         self.attrs = attrs
+        self.thread = threading.current_thread().name
 
     def set_attr(self, key, value):
         if self.attrs is None:
@@ -194,6 +197,7 @@ class Trace:
                     (sp.t1 if sp.t1 is not None else time.monotonic())
                     - sp.t0, 6,
                 ),
+                "thread": sp.thread,
             }
             if sp.attrs:
                 rec["attrs"] = sp.attrs
