@@ -13,13 +13,16 @@ Design notes:
   ``VectorizeHelper`` graph rewrite); algorithms consume the compiled
   sampler, never re-interpreting the graph per suggest.
 - ``Trials`` additionally maintains a **struct-of-arrays history cache**
-  (per-label contiguous value/tid arrays + aligned loss arrays) rebuilt
-  incrementally on ``refresh`` so TPE's device plane consumes history
-  without per-suggest Python document walking.
+  (per-label contiguous value/tid arrays + aligned loss arrays) extended
+  in O(k) for k new trials, so TPE's device plane consumes history
+  without per-suggest Python document walking; the fmin loop's
+  incremental refresh (:func:`loop_refresh`) visits only the documents
+  that can have changed since the last refresh.
 """
 
 from __future__ import annotations
 
+import bisect
 import datetime
 import logging
 import numbers
@@ -202,20 +205,69 @@ def validate_loss_threshold(loss_threshold):
 # ---------------------------------------------------------------------
 
 
+def _scan(docs):
+    """One read of each document's state: the history's rows (DONE, ok,
+    with a loss) with their tids and losses, the positions of the
+    documents that may still change (neither DONE nor CANCEL: NEW,
+    RUNNING, or an ERROR the caller's filter has not dropped yet), and the
+    position of the last row (-1 when there is none)."""
+    rows, tids, losses, open_pos = [], [], [], []
+    last = i = -1
+    for t in docs:  # a counter, not enumerate: the walk is the hot path
+        i += 1
+        state = t["state"]
+        if state == JOB_STATE_DONE:
+            result = t["result"]
+            if result.get("status") != STATUS_OK:
+                continue
+            loss = result.get("loss")
+            if loss is None:
+                continue
+            rows.append(t)
+            tids.append(t["tid"])
+            losses.append(float(loss))
+            last = i
+        elif state != JOB_STATE_CANCEL:
+            open_pos.append(i)
+    return rows, tids, losses, open_pos, last
+
+
+# the value dtypes a column grows in place; others are re-materialised
+# from the column's Python list, as np.asarray would type them
+_GROWABLE = frozenset(np.dtype(d) for d in (np.bool_, np.int64, np.float64))
+
+
+def _grow(buf, n, new):
+    """``buf`` with ``new`` written at ``[n, n + len(new))``; reallocated
+    by doubling (widened to ``new``'s dtype) when it does not fit.  The
+    prefix ``[0, n)`` is never written, so views of it stay as they were."""
+    if buf is None:
+        return new
+    need = n + len(new)
+    dtype = np.result_type(buf.dtype, new.dtype)
+    if need > len(buf) or dtype != buf.dtype:
+        grown = np.empty(max(need, 2 * len(buf)), dtype)
+        grown[:n] = buf[:n]
+        buf = grown
+    buf[n:need] = new
+    return buf
+
+
 class _TrialsHistory:
     """Struct-of-arrays cache of completed-trial history.
 
-    Per label: contiguous ``tids``/``vals`` numpy arrays (active trials
+    Per label: contiguous ``idxs``/``vals`` numpy arrays (active trials
     only); plus the aligned ok-trial ``loss_tids``/``losses`` arrays.  This
-    is what the TPE/anneal jitted kernels consume — rebuilt only when the
-    set of completed trials changes, never per suggest.
+    is what the TPE/anneal kernels consume — rebuilt only when the set of
+    completed trials changes, never per suggest.  Each array is the filled
+    prefix of a buffer grown by doubling, so appending k trials costs O(k);
+    an array handed out is never written again.
     """
 
     def __init__(self):
-        self._fingerprint = None
         self._seen_revision = None
-        self._idxs_lists = {}
-        self._vals_lists = {}
+        self._bufs = {}        # column key -> buffer; the arrays are prefixes
+        self._vals_lists = {}  # label -> values as stored, for odd dtypes
         self._loss_join_view = None
         self.idxs = {}
         self.vals = {}
@@ -230,12 +282,24 @@ class _TrialsHistory:
         self.content_version = 0
         self.last_nonappend_version = 0
 
+    def __getstate__(self):
+        # pickle the arrays, not their buffers' spare capacity
+        state = dict(self.__dict__)
+        del state["_bufs"]
+        return state
+
     def __setstate__(self, state):
         # defaults first, then the pickled attrs: caches pickled by older
         # versions (inside trials_save_file checkpoints) lack newer
-        # attributes like _seen_revision/_loss_join_view
+        # attributes like _seen_revision/_loss_join_view and carry retired
+        # ones; each array becomes its own column's buffer
         self.__init__()
         self.__dict__.update(state)
+        for old in ("_fingerprint", "_idxs_lists"):
+            self.__dict__.pop(old, None)
+        self._bufs = {"tids": self.loss_tids, "losses": self.losses}
+        self._bufs.update({("idxs", k): v for k, v in self.idxs.items()})
+        self._bufs.update({("vals", k): v for k, v in self.vals.items()})
 
     def join_losses(self, tids):
         """Vectorized tid→loss join against the aligned (loss_tids,
@@ -258,91 +322,119 @@ class _TrialsHistory:
         """Bring the cache up to ``trials_obj``; returns what it did:
         "skipped", "unchanged", "appended" or "rebuilt" (the ``rebuild``
         attribute of a ``trials.refresh`` span)."""
-        # Revision fast path: ``Trials`` bumps ``_revision`` in
-        # ``refresh()`` — the sole point where ``_trials`` (what this
-        # cache reads) changes — so an unchanged revision means the
-        # store content is unchanged and
-        # the O(N) fingerprint walk below is skipped entirely — this is
-        # what keeps per-suggest host work O(1) at 10k-trial histories
-        # (~27 ms/suggest of doc-walking otherwise, several times the
-        # device scorer itself).  In-place doc mutation WITHOUT a
-        # refresh() is invisible to this cache; refresh-before-read is
-        # the store's documented contract (the driver loop, workers, and
+        # Revision fast path: ``Trials`` bumps ``_revision`` in its
+        # refreshes — the sole points where ``_trials`` (what this cache
+        # reads) changes — so an unchanged revision means the store
+        # content is unchanged and the O(N) walk below is skipped
+        # entirely — this is what keeps per-suggest host work O(1) at
+        # 10k-trial histories.  In-place doc mutation WITHOUT a refresh()
+        # is invisible to this cache; refresh-before-read is the store's
+        # documented contract (the fmin loop, workers, and
         # serial_evaluate all end mutations with a refresh).
         rev = getattr(trials_obj, "_revision", None)
         if rev is not None and rev == self._seen_revision:
             return "skipped"
-        # One pass over the docs collects the completed-OK (tid, loss)
-        # pairs; they double as the change fingerprint.  In the steady
-        # state (history grew by k trials) the per-label SoA columns are
-        # extended by the k new docs only — the reference re-walks every
-        # document per suggest (``miscs_to_idxs_vals``); rebuilding from
-        # scratch here would quietly reintroduce that O(N) cost per trial.
-        # (_seen_revision is committed only on SUCCESS — at each return
-        # below — so an exception mid-walk, e.g. a malformed loss, leaves
-        # the cache marked stale and re-raises on the next access instead
-        # of silently serving pre-mutation arrays.)
-        kept, tids, losses = [], [], []
-        for t in trials_obj._trials:
-            if t["state"] != JOB_STATE_DONE or t["result"].get("status") != STATUS_OK:
-                continue
-            loss = t["result"].get("loss")
-            if loss is None:
-                continue
-            kept.append(t)
-            tids.append(t["tid"])
-            losses.append(float(loss))
+        rows, tids, losses, _, _ = _scan(trials_obj._trials)
+        return self.fold(rows, tids, losses, rev)
+
+    def fold(self, rows, tids, losses, rev):
+        """Bring the cache up to a full walk's rows (``_scan``'s, in store
+        order): "unchanged", "appended" when the rows extend the cached
+        ones, else "rebuilt".  ``rev`` is the store's revision they were
+        read at.  (_seen_revision is committed only on SUCCESS, so an
+        exception, e.g. a malformed loss, leaves the cache marked stale and
+        re-raises on the next access instead of silently serving
+        pre-mutation arrays.)"""
         fp_tids = np.asarray(tids, dtype=np.int64)
         fp_losses = np.asarray(losses, dtype=np.float64)
-        fingerprint = (len(kept), fp_tids.tobytes(), fp_losses.tobytes())
-        if fingerprint == self._fingerprint:
+        # the (tid, loss) pairs double as the change fingerprint: bytes,
+        # so a NaN or a signed zero that changes is a change
+        if (
+            self.content_version
+            and fp_tids.tobytes() == self.loss_tids.tobytes()
+            and fp_losses.tobytes() == self.losses.tobytes()
+        ):
             self._seen_revision = rev
             return "unchanged"
-
         n_prev = len(self.loss_tids)
         append_only = (
-            len(kept) >= n_prev
+            len(rows) >= n_prev
             and np.array_equal(fp_tids[:n_prev], self.loss_tids)
             # equal_nan: NaN losses (diverged trials) are stable content,
             # not changes — without it every append degrades to a full
             # O(N) rebuild once any NaN enters the history
             and np.array_equal(fp_losses[:n_prev], self.losses, equal_nan=True)
         )
-        # Extend into COPIES and commit every attribute only after the
-        # walk finishes: an exception on a malformed doc (missing vals,
-        # bad loss) must leave the previous cache fully intact — a
-        # half-extended list plus a committed fingerprint would be served
-        # as fresh forever after.  The copies are pointer-shallow, ~50 µs
-        # at 10k trials, and only on actual content changes.
+        # In the steady state (history grew by k trials) the columns are
+        # extended by the k new rows only — the reference re-walks every
+        # document per suggest (``miscs_to_idxs_vals``)
         if append_only:
-            idxs_lists = {k: list(v) for k, v in self._idxs_lists.items()}
-            vals_lists = {k: list(v) for k, v in self._vals_lists.items()}
+            self._commit(rows[n_prev:], fp_tids[n_prev:], fp_losses[n_prev:], fresh=False)
         else:
-            idxs_lists, vals_lists = {}, {}
-            n_prev = 0
-        for t in kept[n_prev:]:
-            for k, tt in t["misc"]["idxs"].items():
-                if tt:
-                    idxs_lists.setdefault(k, []).append(tt[0])
-                    vals_lists.setdefault(k, []).append(t["misc"]["vals"][k][0])
-        # materialize BEFORE committing anything: np.asarray on a
-        # malformed column (e.g. a non-int tid) must not strand a
-        # committed fingerprint over misaligned arrays
-        idxs_arrays = {k: np.asarray(v, dtype=np.int64) for k, v in idxs_lists.items()}
-        vals_arrays = {k: np.asarray(v) for k, v in vals_lists.items()}
-        self._idxs_lists = idxs_lists
-        self._vals_lists = vals_lists
-        self._loss_join_view = None  # re-memoized on next join_losses
-        self._fingerprint = fingerprint
-        self.loss_tids = fp_tids
-        self.losses = fp_losses
-        self.idxs = idxs_arrays
-        self.vals = vals_arrays
-        self.content_version += 1
+            self._commit(rows, fp_tids, fp_losses, fresh=True)
         if not append_only:
             self.last_nonappend_version = self.content_version
         self._seen_revision = rev
         return "appended" if append_only else "rebuilt"
+
+    def append_rows(self, rows, rev):
+        """Append newly completed rows (``_scan``'s kind, in store order,
+        all after the cached ones) without a walk over the others: what
+        :meth:`fold` does for them, in O(len(rows))."""
+        if not rows:
+            self._seen_revision = rev
+            return "unchanged"
+        tids = np.asarray([t["tid"] for t in rows], dtype=np.int64)
+        losses = np.asarray([float(t["result"]["loss"]) for t in rows], dtype=np.float64)
+        self._commit(rows, tids, losses, fresh=False)
+        self._seen_revision = rev
+        return "appended"
+
+    def _commit(self, rows, tids, losses, fresh):
+        """Append ``rows`` (all of them when ``fresh``: the columns start
+        empty) and bump ``content_version``.  Everything that can raise on
+        a malformed doc (missing vals, a non-int tid) runs before the
+        first attribute changes, so the previous cache stays whole."""
+        idx_new, val_new = {}, {}
+        for t in rows:
+            misc = t["misc"]
+            for k, tt in misc["idxs"].items():
+                if tt:
+                    idx_new.setdefault(k, []).append(tt[0])
+                    val_new.setdefault(k, []).append(misc["vals"][k][0])
+        idx_arrays = {k: np.asarray(v, dtype=np.int64) for k, v in idx_new.items()}
+        old_vals = {} if fresh else self.vals
+        old_lists = {} if fresh else self._vals_lists
+        val_arrays, whole = {}, {}
+        for k, v in val_new.items():
+            batch = np.asarray(v)
+            old = old_vals.get(k)
+            if batch.dtype in _GROWABLE and (old is None or old.dtype in _GROWABLE):
+                val_arrays[k] = batch
+            else:
+                whole[k] = np.asarray(old_lists.get(k, []) + v)
+        if fresh:
+            self._bufs, self._vals_lists, self.idxs, self.vals = {}, {}, {}, {}
+        bufs = self._bufs
+        n = len(self.loss_tids) if not fresh else 0
+        bufs["tids"] = _grow(bufs.get("tids"), n, tids)
+        bufs["losses"] = _grow(bufs.get("losses"), n, losses)
+        self.loss_tids = bufs["tids"][: n + len(tids)]
+        self.losses = bufs["losses"][: n + len(losses)]
+        for k, new in idx_arrays.items():
+            m = len(self.idxs.get(k, ()))
+            bufs["idxs", k] = _grow(bufs.get(("idxs", k)), m, new)
+            self.idxs[k] = bufs["idxs", k][: m + len(new)]
+        for k, v in val_new.items():
+            self._vals_lists.setdefault(k, []).extend(v)
+            if k in whole:
+                bufs["vals", k] = self.vals[k] = whole[k]
+                continue
+            m = len(self.vals.get(k, ()))
+            bufs["vals", k] = _grow(bufs.get(("vals", k)), m, val_arrays[k])
+            self.vals[k] = bufs["vals", k][: m + len(v)]
+        self._loss_join_view = None  # re-memoized on next join_losses
+        self.content_version += 1
 
 
 class Trials:
@@ -361,6 +453,14 @@ class Trials:
     Subclasses overriding ``refresh`` must call ``super().refresh()``
     (or otherwise reach the bump) — pinned by
     ``tests/test_device_history.py::TestRevisionContract``.
+
+    ``refresh()`` walks every document.  The fmin loop's own refresh
+    points (:func:`loop_refresh`) fold only the documents appended since
+    the last refresh and those that were NEW or RUNNING then, which is all
+    the loop itself changes; a run's first refresh and its closing ones
+    walk everything.  So an in-place edit of a COMPLETED trial mid-run
+    (say, by an ``early_stop_fn``) reaches ``history`` at the run's
+    closing refresh, or at the next ``refresh()`` call, not before.
     """
 
     asynchronous = False
@@ -372,6 +472,7 @@ class Trials:
         self.attachments = {}
         self._history = _TrialsHistory()
         self._revision = 0
+        self._refresh_mark = None
         if refresh:
             self.refresh()
 
@@ -384,6 +485,7 @@ class Trials:
         rval.attachments = self.attachments
         rval._history = _TrialsHistory()
         rval._revision = 0
+        rval._refresh_mark = None
         if refresh:
             rval.refresh()
         return rval
@@ -453,26 +555,110 @@ class Trials:
 
     # -- store maintenance --------------------------------------------
     def refresh(self):
-        # refresh() is the SOLE revision-bump point: every documented
-        # mutation path ends here, and _trials (what the cache reads) only
-        # changes here.  The bump lets _TrialsHistory skip its O(N) change
-        # scan between refreshes.  (getattr: Trials unpickled from
+        """Rebuild ``_trials``, ``_ids`` and the history cache from every
+        document, in-place edits of completed trials included.  Records
+        where the walk left off for the fmin loop's incremental refresh
+        (:func:`loop_refresh`)."""
+        self._refresh(incremental=False)
+
+    def _refresh_incremental(self):
+        """The fmin loop's refresh (see :func:`loop_refresh`): folds only
+        the documents appended since the last refresh and those that were
+        NEW or RUNNING then, and gives the state :meth:`refresh` would.
+        Walks every document instead where it cannot prove that."""
+        self._refresh(incremental=True)
+
+    def _refresh(self, incremental):
+        # a refresh is the SOLE revision-bump point: every documented
+        # mutation path ends in one, and _trials (what the cache reads)
+        # only changes here.  The bump lets _TrialsHistory skip its O(N)
+        # change scan between refreshes.  (getattr: Trials unpickled from
         # pre-revision checkpoints lack the attribute — trials_save_file
         # resume must keep working)
         self._revision = getattr(self, "_revision", 0) + 1
         with tracing.span("trials.refresh", n_docs=len(self._dynamic_trials)) as sp:
-            if self._exp_key is None:
-                self._trials = [
-                    tt for tt in self._dynamic_trials if tt["state"] != JOB_STATE_ERROR
-                ]
-            else:
-                self._trials = [
-                    tt
-                    for tt in self._dynamic_trials
-                    if tt["state"] != JOB_STATE_ERROR and tt["exp_key"] == self._exp_key
-                ]
-            self._ids.update([tt["tid"] for tt in self._trials])
-            sp.set_attr("rebuild", self._history.maybe_rebuild(self))
+            walked = self._fold_changed(sp) if incremental else None
+            if walked is None:
+                walked = self._fold_all(sp)
+            sp.set_attr("n_walked", walked)
+
+    def _kept(self, docs):
+        """``docs`` less the ERROR ones and, in an ``exp_key`` view, those
+        of other experiments: what ``_trials`` holds."""
+        if self._exp_key is None:
+            return [tt for tt in docs if tt["state"] != JOB_STATE_ERROR]
+        return [
+            tt
+            for tt in docs
+            if tt["state"] != JOB_STATE_ERROR and tt["exp_key"] == self._exp_key
+        ]
+
+    def _fold_all(self, sp):
+        """The full walk; returns the documents it visited."""
+        self._refresh_mark = None
+        dyn = self._dynamic_trials
+        n_dyn = len(dyn)
+        trials = self._kept(dyn)
+        self._trials = trials
+        self._ids.update([tt["tid"] for tt in trials])
+        rows, tids, losses, open_pos, last_row = _scan(trials)
+        sp.set_attr("rebuild", self._history.fold(rows, tids, losses, self._revision))
+        self._refresh_mark = _RefreshMark(self, n_dyn, open_pos, last_row)
+        return n_dyn
+
+    def _fold_changed(self, sp):
+        """The incremental fold; returns the documents it visited, or None
+        (nothing changed yet) where only the full walk is exact: another
+        list or history, a list that shrank, no refresh recorded (a new or
+        unpickled store), or an open trial completing behind a row the
+        history already holds (the full walk's rows would reorder)."""
+        mark = getattr(self, "_refresh_mark", None)
+        dyn = self._dynamic_trials
+        n_dyn = len(dyn)
+        if mark is None or not mark.holds(self, n_dyn):
+            return None
+        prev = self._trials
+        # one read of each open document's state decides its fate
+        rows_at, still_open, errored = [], [], []
+        for i in mark.open:
+            t = prev[i]
+            state = t["state"]
+            if state == JOB_STATE_DONE:
+                result = t["result"]
+                if result.get("status") == STATUS_OK and result.get("loss") is not None:
+                    rows_at.append(i)
+            elif state == JOB_STATE_ERROR:
+                errored.append(i)
+            elif state != JOB_STATE_CANCEL:
+                still_open.append(i)
+        if rows_at and rows_at[0] < mark.last_row:
+            return None
+        self._refresh_mark = None
+        fresh = dyn[mark.n_dyn:n_dyn]
+        added = self._kept(fresh)
+        trials = list(prev)
+        for i in reversed(errored):
+            del trials[i]
+        base = len(trials)
+        trials.extend(added)
+
+        def moved(i):
+            return i - bisect.bisect_left(errored, i)
+
+        add_rows, _, _, add_open, add_last = _scan(added)
+        if add_rows:
+            last_row = base + add_last
+        elif rows_at:
+            last_row = moved(rows_at[-1])
+        else:
+            last_row = moved(mark.last_row) if mark.last_row >= 0 else -1
+        self._trials = trials
+        self._ids.update([tt["tid"] for tt in added])
+        rows = [prev[i] for i in rows_at] + add_rows
+        sp.set_attr("rebuild", self._history.append_rows(rows, self._revision))
+        open_pos = [moved(i) for i in still_open] + [base + j for j in add_open]
+        self._refresh_mark = _RefreshMark(self, n_dyn, open_pos, last_row)
+        return len(fresh) + len(mark.open)
 
     @property
     def history(self):
@@ -748,6 +934,50 @@ class Trials:
             search_stats=search_stats,
             tracer=tracer,
         )
+
+
+class _RefreshMark:
+    """Where a store's last refresh left off: its document list and that
+    list's length then (with the last document, so a list emptied and
+    refilled is not taken for the same), the ``_trials`` list and history
+    it made, the positions in ``_trials`` of the documents that could
+    still change (:func:`_scan`'s open ones) and of the history's last
+    row, and the refresh's revision."""
+
+    def __init__(self, store, n_dyn, open_pos, last_row):
+        self.dyn = store._dynamic_trials
+        self.n_dyn = n_dyn
+        self.tail = self.dyn[n_dyn - 1] if n_dyn else None
+        self.trials = store._trials
+        self.history = store._history
+        self.open = open_pos
+        self.last_row = last_row
+        self.revision = store._revision
+
+    def holds(self, store, n_dyn):
+        """Is the store still as this mark's refresh left it, but for
+        documents appended and the open ones changed?"""
+        return (
+            store._dynamic_trials is self.dyn
+            and n_dyn >= self.n_dyn
+            and (not self.n_dyn or self.dyn[self.n_dyn - 1] is self.tail)
+            and store._trials is self.trials
+            and store._history is self.history
+            and store._history._seen_revision == self.revision
+        )
+
+
+def loop_refresh(trials):
+    """The refresh at the fmin loop's own refresh points (``FMinIter``,
+    the speculative engine).  Between two of them the loop only appends
+    documents and moves NEW and RUNNING ones on, so a store that keeps
+    :meth:`Trials.refresh` folds just those
+    (:meth:`Trials._refresh_incremental`); one that overrides it
+    (``FileTrials`` replaces documents in place) runs its own."""
+    if type(trials).refresh is Trials.refresh:
+        trials._refresh_incremental()
+    else:
+        trials.refresh()
 
 
 def trials_from_docs(docs, validate=True, **kwargs):

@@ -42,6 +42,7 @@ from .base import (
     Ctrl,
     Domain,
     Trials,
+    loop_refresh,
     spec_from_misc,
     trials_from_docs,
     validate_loss_threshold,
@@ -302,7 +303,7 @@ class FMinIter:
                 N -= 1
                 if N == 0:
                     break
-        self.trials.refresh()
+        self._refresh()
 
     def _serial_evaluate_pipelined(self, engine, budget):
         """serial_evaluate with suggest/evaluate overlap: the objective of
@@ -378,13 +379,23 @@ class FMinIter:
                 trial["refresh_time"] = coarse_utcnow()
                 if not self.catch_eval_exceptions:
                     engine.discard()
-                    self.trials.refresh()
+                    self._refresh()
                     raise e
             else:
                 trial["state"] = JOB_STATE_DONE
                 trial["result"] = box["result"]
                 trial["refresh_time"] = coarse_utcnow()
-        self.trials.refresh()
+        self._refresh()
+
+    def _refresh(self):
+        """A refresh point of the loop: :func:`~hyperopt_tpu_torch.base.
+        loop_refresh`, which folds only what the loop changed since the
+        last refresh; the full walk where the objective is handed the store
+        (``pass_expr_memo_ctrl``) and may edit any document."""
+        if getattr(self.domain, "pass_expr_memo_ctrl", False):
+            self.trials.refresh()
+        else:
+            loop_refresh(self.trials)
 
     def block_until_done(self):
         already_printed = False
@@ -406,10 +417,19 @@ class FMinIter:
             self.serial_evaluate()
 
     def run(self, N, block_until_done=True):
-        """Enqueue and run up to ``N`` new trials."""
+        """Enqueue and run up to ``N`` new trials.
+
+        Between its first refresh and its closing ones the run refreshes
+        incrementally (:func:`~hyperopt_tpu_torch.base.loop_refresh`): a
+        completed trial that a callback (``early_stop_fn``) edits in place
+        reaches the history at the closing refresh, not mid-run."""
         trials = self.trials
         algo = self.algo
         n_queued = 0
+        if isinstance(trials, Trials):
+            # the run's first refresh walks every document, so edits made
+            # to the store between runs are seen
+            trials._refresh_mark = None
 
         def get_queue_len():
             return self.trials.count_by_state_unsynced(JOB_STATE_NEW)
@@ -502,7 +522,7 @@ class FMinIter:
                                 new_trials, new_ids = engine.next_batch(n_to_enqueue)
                         else:
                             new_ids = trials.new_trial_ids(n_to_enqueue)
-                            self.trials.refresh()
+                            self._refresh()
                             seed = self.rstate.integers(2 ** 31 - 1)
                             with self.timings.phase("suggest", span="fmin.suggest") as sp:
                                 sp.set_attr("path", "sync")
@@ -522,7 +542,7 @@ class FMinIter:
                         if len(new_trials):
                             with tracing.span("fmin.insert", n_docs=len(new_trials)):
                                 self.trials.insert_trial_docs(new_trials)
-                                self.trials.refresh()
+                                self._refresh()
                             n_queued += len(new_trials)
                             qlen = get_queue_len()
                         else:
@@ -555,7 +575,7 @@ class FMinIter:
                             else:
                                 self.serial_evaluate()
 
-                    self.trials.refresh()
+                    self._refresh()
                     # this round's completions (OK losses, NaN included, and
                     # the error count) into the run's search health
                     with tracing.span("fmin.health"):

@@ -81,7 +81,7 @@ from functools import partial
 import numpy as np
 
 from . import tracing
-from .base import JOB_STATE_NEW, JOB_STATE_RUNNING
+from .base import JOB_STATE_NEW, JOB_STATE_RUNNING, loop_refresh
 from .observability import SpeculationStats
 
 logger = logging.getLogger(__name__)
@@ -455,7 +455,7 @@ class SpeculativeSuggestEngine:
             # scan below must see those losses, or a completed-but-
             # unsynced trial is neither in the history nor hypothesized
             # and a relaunched speculation silently loses its observation
-            self.trials.refresh()
+            loop_refresh(self.trials)
             with tracing.span("pipeline.validate") as vspan:
                 vspan.set_attr("n_invalidated", self._validate())
             n_launched = n_hypothesis = 0
@@ -470,7 +470,7 @@ class SpeculativeSuggestEngine:
                     ids, seed = self._spare.popleft()
                 else:
                     ids = self.trials.new_trial_ids(batch_size)
-                    self.trials.refresh()
+                    loop_refresh(self.trials)
                     seed = int(self.rstate.integers(2 ** 31 - 1))
                 try:
                     resolve, snap = self._launch_spec(ids, seed)
@@ -549,7 +549,7 @@ class SpeculativeSuggestEngine:
                     fresh, seed = self._spare.popleft()
                 else:
                     fresh = self.trials.new_trial_ids(rem)
-                    self.trials.refresh()
+                    loop_refresh(self.trials)
                     seed = int(self.rstate.integers(2 ** 31 - 1))
                 t0 = time.perf_counter()
                 with tracing.span("pipeline.sync_suggest"):

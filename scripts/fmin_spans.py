@@ -17,7 +17,12 @@ its children on its own thread.
   - ``suggest.prep_ms``: exclusive time in ``suggest.history`` and
     ``suggest.build`` per suggest (one ``suggest.build`` each);
   - ``suggest.launch_ms``: time in ``suggest.launch`` per suggest;
-  - ``fmin.suggest_ms``: time in ``fmin.suggest`` per trial.
+  - ``fmin.suggest_ms``: time in ``fmin.suggest`` per trial;
+  - ``refresh.incremental_share``: the share of ``trials.refresh`` spans
+    that walked fewer documents than the store holds (``n_walked`` <
+    ``n_docs``: the loop's incremental refresh), and
+    ``refresh.incremental_walked_max``, the most documents one of those
+    walked.
 
 - ``exclusive_ms``: each span name's exclusive time per trial;
   ``trials.refresh@<parent>`` splits the refreshes by call site.
@@ -77,6 +82,8 @@ def readings(traces):
         return {}, {}
     excl, count = defaultdict(float), Counter()
     overrun = suggest = 0.0
+    walked = []   # n_walked of the incremental refreshes
+    n_walk_counted = 0
     for spans in traces:
         ex = exclusive(spans)
         names = {s["id"]: s["name"] for s in spans}
@@ -86,6 +93,11 @@ def readings(traces):
             if s["name"] == "trials.refresh":
                 # which call site: the refresh's parent span
                 excl[f"trials.refresh@{names.get(s['parent'])}"] += ex[s["id"]]
+                attrs = s.get("attrs") or {}
+                if "n_walked" in attrs:
+                    n_walk_counted += 1
+                    if attrs["n_walked"] < attrs["n_docs"]:
+                        walked.append(attrs["n_walked"])
         ends = defaultdict(float)
         for s in spans:
             ends[s["name"]] = max(ends[s["name"]], s["t1"])
@@ -99,6 +111,9 @@ def readings(traces):
         "pipeline.overrun_ms": 1e3 * overrun / n,
         "fmin.suggest_ms": 1e3 * suggest / n,
     }
+    if n_walk_counted:
+        out["refresh.incremental_share"] = len(walked) / n_walk_counted
+        out["refresh.incremental_walked_max"] = max(walked, default=None)
     n_suggests = count["suggest.build"]
     if n_suggests:
         out["suggest.prep_ms"] = 1e3 * (excl["suggest.history"] + excl["suggest.build"]) / n_suggests

@@ -287,6 +287,24 @@ def test_the_counters_of_known_spans():
     assert S.counters([]) == ({}, {})
 
 
+def test_the_incremental_share_of_known_refreshes():
+    """``n_walked`` against ``n_docs``: the share of refreshes that walked
+    fewer documents than the store held, the most one of those walked,
+    and the attribute's mean and total in ``counts``."""
+    traces = [one_trial(0.0), one_trial(1.0)]
+    for spans in traces:
+        refreshes = [s for s in spans if s["name"] == "trials.refresh"]
+        for s, walked in zip(refreshes, (1, 101, 0)):
+            s["attrs"]["n_walked"] = walked
+    values, _ = S.readings(traces)
+    assert values["refresh.incremental_share"] == pytest.approx(4 / 6)
+    assert values["refresh.incremental_walked_max"] == 1
+    _, counts = S.counters(traces)
+    assert counts["trials.refresh.n_walked"] == {"mean": pytest.approx(34.0),
+                                                 "per_trial": pytest.approx(102.0)}
+    assert "refresh.incremental_share" not in S.readings([one_trial()])[0]
+
+
 def test_the_slowest_trials_name_their_study_size_tid_and_largest_span():
     fast = one_trial(0.0, 100)
     slow = one_trial(1.0, 101)
@@ -309,6 +327,9 @@ def test_the_report_reads_every_counter_of_a_traced_study(k, tmp_path):
     recorded_attrs = {(s["name"], a) for r in records for s in r["spans"]
                       for a in s.get("attrs", {})}
     assert ("trials.refresh", "rebuild") in recorded_attrs
+    assert ("trials.refresh", "n_walked") in recorded_attrs
+    assert out["readings"]["refresh.incremental_share"] > 0.5
+    assert out["readings"]["refresh.incremental_walked_max"] <= 4
     for name, attr in recorded_attrs:
         if S.LABELS.get(name) == attr:
             assert out["by_label"][f"{name}.{attr}"], (name, attr)
