@@ -207,12 +207,11 @@ def validate_loss_threshold(loss_threshold):
 
 def _scan(docs):
     """One read of each document's state: the history's rows (DONE, ok,
-    with a loss) with their tids and losses, the positions of the
+    with a loss) with their tids and losses, and the positions of the
     documents that may still change (neither DONE nor CANCEL: NEW,
-    RUNNING, or an ERROR the caller's filter has not dropped yet), and the
-    position of the last row (-1 when there is none)."""
+    RUNNING, or an ERROR the caller's filter has not dropped yet)."""
     rows, tids, losses, open_pos = [], [], [], []
-    last = i = -1
+    i = -1
     for t in docs:  # a counter, not enumerate: the walk is the hot path
         i += 1
         state = t["state"]
@@ -226,10 +225,82 @@ def _scan(docs):
             rows.append(t)
             tids.append(t["tid"])
             losses.append(float(loss))
-            last = i
         elif state != JOB_STATE_CANCEL:
             open_pos.append(i)
-    return rows, tids, losses, open_pos, last
+    return rows, tids, losses, open_pos
+
+
+# a loss ``min`` cannot order against the others (a numeric string
+# injected beside floats), or a document without a result to read (a
+# partial one, as a torn queue record leaves): the tallies hold no best
+# loss from there on, and the read walks and raises as the walk does
+_UNORDERED = object()
+
+
+def _ok_loss(t):
+    """The loss that fmin's best-loss read takes from document ``t``
+    (``losses()`` where ``statuses()`` is OK; None where it takes none,
+    ``_UNORDERED`` where that read raises)."""
+    try:
+        result = t["result"]
+        return result.get("loss") if result.get("status") == STATUS_OK else None
+    except (KeyError, AttributeError):
+        return _UNORDERED
+
+
+class _Tallies:
+    """What the fmin loop reads of a store, kept by its refreshes so that
+    the loop reads it in O(1) (:meth:`Trials._tallies`): ``states``, the
+    documents per state as ``count_by_state_unsynced`` counts them (the
+    store's ``exp_key``, ERROR included); ``best``, Python's ``min`` over
+    the OK losses of ``_trials`` in store order (NaN where the first is
+    NaN, None where there is none); and ``last_ok``, the position in
+    ``_trials`` of the last of those losses."""
+
+    __slots__ = ("states", "best", "last_ok")
+
+    def __init__(self, states, best=None, last_ok=-1):
+        self.states = states
+        self.best = best
+        self.last_ok = last_ok
+
+    def count(self, arg):
+        """``count_by_state_synced(arg)`` over the tallied documents."""
+        if arg in JOB_STATES:
+            return self.states.get(arg, 0)
+        if hasattr(arg, "__iter__"):
+            states = set(arg)
+            assert states.issubset(JOB_VALID_STATES)
+            return sum(self.states.get(s, 0) for s in states)
+        raise TypeError(arg)
+
+    def add_states(self, docs, exp_key):
+        states = self.states
+        for t in docs:
+            if exp_key is None or t["exp_key"] == exp_key:
+                state = t["state"]
+                states[state] = states.get(state, 0) + 1
+
+    def add_loss(self, loss, pos):
+        """Fold the next OK loss, at ``pos`` in ``_trials``, as ``min``
+        does: it replaces ``best`` only where it compares below it."""
+        self.last_ok = pos
+        best = self.best
+        if best is _UNORDERED:
+            return
+        try:
+            if loss is _UNORDERED or best is None or loss < best:
+                self.best = loss
+        except (TypeError, ValueError):
+            self.best = _UNORDERED
+
+    def add_losses(self, docs, start):
+        """Fold the OK losses of ``docs``, at ``start``, ``start + 1``, ...
+        in ``_trials``."""
+        for pos, t in enumerate(docs, start):
+            loss = _ok_loss(t)
+            if loss is not None:
+                self.add_loss(loss, pos)
 
 
 # the value dtypes a column grows in place; others are re-materialised
@@ -334,7 +405,7 @@ class _TrialsHistory:
         rev = getattr(trials_obj, "_revision", None)
         if rev is not None and rev == self._seen_revision:
             return "skipped"
-        rows, tids, losses, _, _ = _scan(trials_obj._trials)
+        rows, tids, losses, _ = _scan(trials_obj._trials)
         return self.fold(rows, tids, losses, rev)
 
     def fold(self, rows, tids, losses, rev):
@@ -461,6 +532,17 @@ class Trials:
     walk everything.  So an in-place edit of a COMPLETED trial mid-run
     (say, by an ``early_stop_fn``) reaches ``history`` at the run's
     closing refresh, or at the next ``refresh()`` call, not before.
+
+    Each refresh also keeps the documents per state and the best OK loss
+    (``_Tallies``), so the loop reads :meth:`count_by_state_tallied` and
+    :meth:`min_ok_loss` in O(1) instead of walking every document.  They
+    serve the tallies only where the store keeps :meth:`refresh`, is not
+    ``asynchronous``, and has had nothing appended since its last refresh;
+    elsewhere they walk as ``count_by_state_unsynced`` and ``losses()`` do.
+    The contract is the same: between a refresh and the read, a state
+    changed or a loss edited in place is not seen, and an edit of a
+    COMPLETED trial mid-run reaches them at the next full refresh, as it
+    reaches ``history``.
     """
 
     asynchronous = False
@@ -601,37 +683,47 @@ class Trials:
         trials = self._kept(dyn)
         self._trials = trials
         self._ids.update([tt["tid"] for tt in trials])
-        rows, tids, losses, open_pos, last_row = _scan(trials)
+        rows, tids, losses, open_pos = _scan(trials)
         sp.set_attr("rebuild", self._history.fold(rows, tids, losses, self._revision))
-        self._refresh_mark = _RefreshMark(self, n_dyn, open_pos, last_row)
+        tallies = _Tallies({})
+        tallies.add_states(dyn, self._exp_key)
+        tallies.add_losses(trials, 0)
+        self._refresh_mark = _RefreshMark(self, n_dyn, open_pos, tallies)
         return n_dyn
 
     def _fold_changed(self, sp):
         """The incremental fold; returns the documents it visited, or None
         (nothing changed yet) where only the full walk is exact: another
         list or history, a list that shrank, no refresh recorded (a new or
-        unpickled store), or an open trial completing behind a row the
-        history already holds (the full walk's rows would reorder)."""
+        unpickled store), or an open trial that takes an OK loss behind
+        one the last refresh held (the full walk's history rows and
+        best-loss order would differ)."""
         mark = getattr(self, "_refresh_mark", None)
         dyn = self._dynamic_trials
         n_dyn = len(dyn)
-        if mark is None or not mark.holds(self, n_dyn):
+        tallies = getattr(mark, "tallies", None)   # marks pickled before tallies
+        if tallies is None or mark.open_ok or not mark.holds(self, n_dyn):
             return None
         prev = self._trials
-        # one read of each open document's state decides its fate
-        rows_at, still_open, errored = [], [], []
-        for i in mark.open:
+        states = dict(tallies.states)
+        # one read of each open document's state and result decides its fate
+        ok_at, rows_at, still_open, errored = [], [], [], []
+        for i, was in zip(mark.open, mark.open_states):
             t = prev[i]
             state = t["state"]
-            if state == JOB_STATE_DONE:
-                result = t["result"]
-                if result.get("status") == STATUS_OK and result.get("loss") is not None:
-                    rows_at.append(i)
-            elif state == JOB_STATE_ERROR:
+            if state != was:
+                states[was] = states.get(was, 0) - 1
+                states[state] = states.get(state, 0) + 1
+            if state == JOB_STATE_ERROR:
                 errored.append(i)
-            elif state != JOB_STATE_CANCEL:
+                continue
+            if _ok_loss(t) is not None:
+                ok_at.append(i)
+                if state == JOB_STATE_DONE:
+                    rows_at.append(i)
+            if state != JOB_STATE_DONE and state != JOB_STATE_CANCEL:
                 still_open.append(i)
-        if rows_at and rows_at[0] < mark.last_row:
+        if ok_at and ok_at[0] < tallies.last_ok:
             return None
         self._refresh_mark = None
         fresh = dyn[mark.n_dyn:n_dyn]
@@ -645,20 +737,33 @@ class Trials:
         def moved(i):
             return i - bisect.bisect_left(errored, i)
 
-        add_rows, _, _, add_open, add_last = _scan(added)
-        if add_rows:
-            last_row = base + add_last
-        elif rows_at:
-            last_row = moved(rows_at[-1])
-        else:
-            last_row = moved(mark.last_row) if mark.last_row >= 0 else -1
+        new = _Tallies(states, tallies.best, moved(tallies.last_ok))
+        for i in ok_at:
+            new.add_loss(_ok_loss(prev[i]), moved(i))
+        new.add_states(fresh, self._exp_key)
+        new.add_losses(added, base)
+        add_rows, _, _, add_open = _scan(added)
         self._trials = trials
         self._ids.update([tt["tid"] for tt in added])
         rows = [prev[i] for i in rows_at] + add_rows
         sp.set_attr("rebuild", self._history.append_rows(rows, self._revision))
         open_pos = [moved(i) for i in still_open] + [base + j for j in add_open]
-        self._refresh_mark = _RefreshMark(self, n_dyn, open_pos, last_row)
+        self._refresh_mark = _RefreshMark(self, n_dyn, open_pos, new)
         return len(fresh) + len(mark.open)
+
+    def _tallies(self):
+        """The tallies of the last refresh where they are what the walks
+        would read now, else None: the store keeps :meth:`refresh`, is not
+        asynchronous (workers move states between refreshes), and is as
+        that refresh left it, with nothing appended since."""
+        if type(self).refresh is not Trials.refresh or self.asynchronous:
+            return None
+        mark = getattr(self, "_refresh_mark", None)
+        tallies = getattr(mark, "tallies", None)
+        n_dyn = len(self._dynamic_trials)
+        if tallies is None or n_dyn != mark.n_dyn or not mark.holds(self, n_dyn):
+            return None
+        return tallies
 
     @property
     def history(self):
@@ -768,6 +873,31 @@ class Trials:
         else:
             exp_trials = self._dynamic_trials
         return self.count_by_state_synced(arg, trials=exp_trials)
+
+    def count_by_state_tallied(self, arg):
+        """``count_by_state_unsynced(arg)`` as of the last refresh: in O(1)
+        from the refresh's tallies where they hold (see the class's
+        refresh-before-read contract), else by the walk."""
+        tallies = self._tallies()
+        if tallies is None:
+            return self.count_by_state_unsynced(arg)
+        return tallies.count(arg)
+
+    def min_ok_loss(self):
+        """``min`` over the OK losses (``losses()`` where ``statuses()`` is
+        OK and the loss is not None) in store order, or None where there
+        is none: what fmin's progress reads as the best loss.  NaN where
+        the first is NaN, as ``min`` gives.  In O(1) from the last
+        refresh's tallies where they hold, else by the walk."""
+        tallies = self._tallies()
+        if tallies is not None and tallies.best is not _UNORDERED:
+            return tallies.best
+        losses = [
+            loss
+            for loss, status in zip(self.losses(), self.statuses())
+            if status == STATUS_OK and loss is not None
+        ]
+        return min(losses) if losses else None
 
     # -- results ------------------------------------------------------
     def losses(self, bandit=None):
@@ -941,17 +1071,22 @@ class _RefreshMark:
     list's length then (with the last document, so a list emptied and
     refilled is not taken for the same), the ``_trials`` list and history
     it made, the positions in ``_trials`` of the documents that could
-    still change (:func:`_scan`'s open ones) and of the history's last
-    row, and the refresh's revision."""
+    still change (:func:`_scan`'s open ones) with their states then and
+    whether one holds an OK loss, the refresh's revision, and its
+    :class:`_Tallies`."""
 
-    def __init__(self, store, n_dyn, open_pos, last_row):
+    def __init__(self, store, n_dyn, open_pos, tallies):
         self.dyn = store._dynamic_trials
         self.n_dyn = n_dyn
         self.tail = self.dyn[n_dyn - 1] if n_dyn else None
         self.trials = store._trials
         self.history = store._history
         self.open = open_pos
-        self.last_row = last_row
+        self.open_states = [self.trials[i]["state"] for i in open_pos]
+        # an open document holding an OK loss (``Ctrl.checkpoint``): the
+        # next refresh cannot tell whether that loss changed
+        self.open_ok = any(_ok_loss(self.trials[i]) is not None for i in open_pos)
+        self.tallies = tallies
         self.revision = store._revision
 
     def holds(self, store, n_dyn):

@@ -293,15 +293,16 @@ class SearchStats:
     # -- pull feeding ---------------------------------------------------
     def observe_trials(self, trials):
         """Incrementally ingest a Trials object: the OK-history loss
-        tail (NaN losses included) plus the error-state count.  Safe to
-        call repeatedly; a shrunken history resets the cursor and
-        recounts."""
+        tail (NaN losses included) plus the error-state count (from the
+        last refresh's tallies where they hold, ``Trials.
+        count_by_state_tallied``).  Safe to call repeatedly; a shrunken
+        history resets the cursor and recounts."""
         from .base import JOB_STATE_ERROR
 
         hist = trials.history
         losses = hist.losses
         n = len(losses)
-        n_err = trials.count_by_state_unsynced(JOB_STATE_ERROR)
+        n_err = trials.count_by_state_tallied(JOB_STATE_ERROR)
         with self._lock:
             if n < self._obs_n_ok:
                 # non-append rebuild (delete_all, reload): start over

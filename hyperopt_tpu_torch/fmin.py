@@ -38,7 +38,6 @@ from .base import (
     JOB_STATE_ERROR,
     JOB_STATE_NEW,
     JOB_STATE_RUNNING,
-    STATUS_OK,
     Ctrl,
     Domain,
     Trials,
@@ -420,9 +419,11 @@ class FMinIter:
         """Enqueue and run up to ``N`` new trials.
 
         Between its first refresh and its closing ones the run refreshes
-        incrementally (:func:`~hyperopt_tpu_torch.base.loop_refresh`): a
-        completed trial that a callback (``early_stop_fn``) edits in place
-        reaches the history at the closing refresh, not mid-run."""
+        incrementally (:func:`~hyperopt_tpu_torch.base.loop_refresh`) and
+        reads its state counts and best loss from the refreshes' tallies:
+        a completed trial that a callback (``early_stop_fn``) edits in
+        place reaches the history, the counts and the best loss at the
+        closing refresh, not mid-run."""
         trials = self.trials
         algo = self.algo
         n_queued = 0
@@ -431,15 +432,23 @@ class FMinIter:
             # to the store between runs are seen
             trials._refresh_mark = None
 
+        # the counts and the best loss come from the last refresh's
+        # tallies in O(1) where they hold (every read below follows one of
+        # the loop's refreshes), else from a walk over every document
         def get_queue_len():
-            return self.trials.count_by_state_unsynced(JOB_STATE_NEW)
+            return self.trials.count_by_state_tallied(JOB_STATE_NEW)
 
         def get_n_done():
-            return self.trials.count_by_state_unsynced(JOB_STATE_DONE)
+            return self.trials.count_by_state_tallied(JOB_STATE_DONE)
 
         def get_n_unfinished():
             unfinished_states = [JOB_STATE_NEW, JOB_STATE_RUNNING]
-            return self.trials.count_by_state_unsynced(unfinished_states)
+            return self.trials.count_by_state_tallied(unfinished_states)
+
+        def n_walked():
+            # the documents a read walks: none where the tallies serve it
+            trials = self.trials
+            return 0 if trials._tallies() is not None else len(trials._dynamic_trials)
 
         # the speculative engine (max_speculation > 0) overlaps the suggest
         # on the card with the objective; k=0 keeps the strictly serial
@@ -578,7 +587,8 @@ class FMinIter:
                     self._refresh()
                     # this round's completions (OK losses, NaN included, and
                     # the error count) into the run's search health
-                    with tracing.span("fmin.health"):
+                    with tracing.span("fmin.health") as sp:
+                        sp.set_attr("n_walked", n_walked())
                         self.search_stats.observe_trials(self.trials)
                     if self.trials_save_file != "":
                         if self._orbax_ckpt is not None:
@@ -607,9 +617,9 @@ class FMinIter:
                             )
                             stopped = True
 
-                    # the iteration's scans over every document: state counts,
-                    # progress and the best loss
-                    with tracing.span("fmin.scan", n_docs=len(self.trials)):
+                    # the iteration's state counts, progress and best loss
+                    with tracing.span("fmin.scan", n_docs=len(self.trials)) as sp:
+                        sp.set_attr("n_walked", n_walked())
                         n_unfinished = get_n_unfinished()
                         if n_unfinished == 0:
                             all_trials_complete = True
@@ -620,15 +630,8 @@ class FMinIter:
                         n_displayed = n_okay
 
                         # update progress bar with the best loss so far
-                        losses = [
-                            loss
-                            for loss, status in zip(
-                                self.trials.losses(), self.trials.statuses()
-                            )
-                            if status == STATUS_OK and loss is not None
-                        ]
-                        if losses:
-                            new_best = min(losses)
+                        new_best = self.trials.min_ok_loss()
+                        if new_best is not None:
                             if new_best < best_loss:
                                 best_loss = new_best
                                 progress_ctx.postfix = f"best loss: {best_loss}"

@@ -22,7 +22,10 @@ its children on its own thread.
     that walked fewer documents than the store holds (``n_walked`` <
     ``n_docs``: the loop's incremental refresh), and
     ``refresh.incremental_walked_max``, the most documents one of those
-    walked.
+    walked;
+  - ``scan.tally_share``: the share of ``fmin.scan`` spans that walked no
+    document (``n_walked`` 0: the counts and the best loss came from the
+    refresh's tallies).
 
 - ``exclusive_ms``: each span name's exclusive time per trial;
   ``trials.refresh@<parent>`` splits the refreshes by call site.
@@ -84,20 +87,23 @@ def readings(traces):
     overrun = suggest = 0.0
     walked = []   # n_walked of the incremental refreshes
     n_walk_counted = 0
+    scans = []    # n_walked of the scans
     for spans in traces:
         ex = exclusive(spans)
         names = {s["id"]: s["name"] for s in spans}
         for s in spans:
             excl[s["name"]] += ex[s["id"]]
             count[s["name"]] += 1
+            attrs = s.get("attrs") or {}
             if s["name"] == "trials.refresh":
                 # which call site: the refresh's parent span
                 excl[f"trials.refresh@{names.get(s['parent'])}"] += ex[s["id"]]
-                attrs = s.get("attrs") or {}
                 if "n_walked" in attrs:
                     n_walk_counted += 1
                     if attrs["n_walked"] < attrs["n_docs"]:
                         walked.append(attrs["n_walked"])
+            elif s["name"] == "fmin.scan" and "n_walked" in attrs:
+                scans.append(attrs["n_walked"])
         ends = defaultdict(float)
         for s in spans:
             ends[s["name"]] = max(ends[s["name"]], s["t1"])
@@ -114,6 +120,8 @@ def readings(traces):
     if n_walk_counted:
         out["refresh.incremental_share"] = len(walked) / n_walk_counted
         out["refresh.incremental_walked_max"] = max(walked, default=None)
+    if scans:
+        out["scan.tally_share"] = scans.count(0) / len(scans)
     n_suggests = count["suggest.build"]
     if n_suggests:
         out["suggest.prep_ms"] = 1e3 * (excl["suggest.history"] + excl["suggest.build"]) / n_suggests

@@ -305,6 +305,21 @@ def test_the_incremental_share_of_known_refreshes():
     assert "refresh.incremental_share" not in S.readings([one_trial()])[0]
 
 
+def test_the_tally_share_of_known_scans():
+    """``fmin.scan``'s ``n_walked``: the share of scans that walked no
+    document (the refresh's tallies served them), and the attribute's
+    mean and total in ``counts``; no share where no scan records it."""
+    traces = [one_trial(0.0), one_trial(1.0), one_trial(2.0)]
+    for spans, walked in zip(traces, (101, 0, 0)):
+        next(s for s in spans if s["name"] == "fmin.scan")["attrs"]["n_walked"] = walked
+    values, _ = S.readings(traces)
+    assert values["scan.tally_share"] == pytest.approx(2 / 3)
+    _, counts = S.counters(traces)
+    assert counts["fmin.scan.n_walked"] == {"mean": pytest.approx(101 / 3),
+                                            "per_trial": pytest.approx(101 / 3)}
+    assert "scan.tally_share" not in S.readings([one_trial()])[0]
+
+
 def test_the_slowest_trials_name_their_study_size_tid_and_largest_span():
     fast = one_trial(0.0, 100)
     slow = one_trial(1.0, 101)
@@ -330,6 +345,8 @@ def test_the_report_reads_every_counter_of_a_traced_study(k, tmp_path):
     assert ("trials.refresh", "n_walked") in recorded_attrs
     assert out["readings"]["refresh.incremental_share"] > 0.5
     assert out["readings"]["refresh.incremental_walked_max"] <= 4
+    assert {("fmin.scan", "n_walked"), ("fmin.health", "n_walked")} <= recorded_attrs
+    assert out["readings"]["scan.tally_share"] == 1.0
     for name, attr in recorded_attrs:
         if S.LABELS.get(name) == attr:
             assert out["by_label"][f"{name}.{attr}"], (name, attr)
