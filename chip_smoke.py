@@ -47,33 +47,29 @@ non-zero without the final line):
     ``multi_study_suggest_async``: each study's docs equal its unbatched
     suggest, 8 pair-score launches; ms of the batched dispatch against
     four sequential suggests.
-14. ``fused_probe``: the fused kernel's timing probe through
-    ``resolve_scorer`` on the card (unfused and fused ms, the verdict),
-    then an unpinned suggest at the main path's history launches the
-    kernel the verdict names.
-15. ``multi_id_suggest``: ``tpe.suggest`` with 8 ids at the main path's
+14. ``multi_id_suggest``: ``tpe.suggest`` with 8 ids at the main path's
     history: one pair-score launch per unquantized family (2, not 16),
     the card's values against the CPU's from one set of uniform streams
     over 8 seeds (>= 80% equal to rtol 1e-5, every other value a near-tie
     under the CPU's own scorer), ms of the 8-id call against 8 single-id
     calls, in turns.
-16. ``atpe_path``: serial ``fmin(algo=atpe.suggest)`` from the
+15. ``atpe_path``: serial ``fmin(algo=atpe.suggest)`` from the
     10,000-trial history, 8 suggests: per suggest the meta-parameters,
     locked labels, launches, ms and featurization ms; the meta-models
     loaded and the load warnings; then ``tpe.suggest`` with ATPE's locks
     and a result filter, card against CPU by the same rule.
-17. ``anneal_mix``: ``anneal.suggest`` and ``mix.suggest`` over
+16. ``anneal_mix``: ``anneal.suggest`` and ``mix.suggest`` over
     (0.5 tpe, 0.25 anneal, 0.25 rand), 16 evals each from a 1,000-trial
     history: values inside their supports, pair-score launches in a mix
     suggest exactly when it picked TPE.
-18. ``parallel_backend``: ``TorchTrials(parallelism=8)``'s host plane at
+17. ``parallel_backend``: ``TorchTrials(parallelism=8)``'s host plane at
     the main path's history (``tpe.suggest`` with 8192 candidates, the
     bench objective plus a 50 ms sleep, 32 evals): no error, 32 host
     trials, suggest calls with more than one id, 2 launches per call,
     wall ms per trial beside the serial loop's; then its device plane
     (``device_fn`` on the zoo's Branin, 64 evals): device batches only,
     each loss equal to the host objective to rel 1e-4.
-19. ``file_trials``: ``FileTrials`` at the main path's history (a
+18. ``file_trials``: ``FileTrials`` at the main path's history (a
     segment-log queue, one group commit) with 4 worker processes
     (``python -m hyperopt_tpu_torch.parallel.worker``): 32 trials of the
     bench objective plus a 50 ms sleep through fmin's asynchronous loop
@@ -90,11 +86,11 @@ non-zero without the final line):
     Then ``fsck`` on that queue, after one more writer SIGKILLed inside
     a segment append: only rules a killed writer can leave, repaired,
     clean on a second pass, the same docs read back, the CLI exits 0.
-20. ``space_lint``: ``fmin(validate_space=True)`` over bench.py's space
+19. ``space_lint``: ``fmin(validate_space=True)`` over bench.py's space
     from the 10,000-trial history, 4 trials on the serial loop (2
     pair-score launches each); a space with an SP error raises
     ``InvalidSpaceError`` before any launch; the lint's host ms.
-21. ``device_recovery``: the pipelined fmin (k=1) at that history with
+20. ``device_recovery``: the pipelined fmin (k=1) at that history with
     the 50 ms objective, 8 trials: two device errors injected through the
     chaos harness's device site on consecutive dispatches (the trials
     equal a fault-free run's, 2 errors and 2 re-initializations, the
@@ -103,13 +99,13 @@ non-zero without the final line):
     memory) on the first dispatch, recovered with the same trials;
     three consecutive injected errors raise, with no CPU fallback and
     every dispatch on the card.  Seconds per re-initialization.
-22. ``profiler``: ``profiling.DeviceProfiler`` over 16 serial suggests at
+21. ``profiler``: ``profiling.DeviceProfiler`` over 16 serial suggests at
     the main path's shape and one on the fused tier: per dispatch the
     CUDA-event device seconds beside the host-observed ones, modeled
     FLOPs and bytes, binding ceiling and share; the duty cycle; the
     Prometheus text parses; suggest p50 with and without the profiler,
     16 each in turns.
-23. ``service``: the optimization service on the card, one replica
+22. ``service``: the optimization service on the card, one replica
     (``OptimizationService(device="cuda")`` behind ``ServiceServer``).  4
     ``tpe`` studies over bench.py's space with 8192 candidates, each from
     a 10,000-trial history, served by 4 concurrent ``ServiceClient``
@@ -130,7 +126,7 @@ non-zero without the final line):
     served no cold suggest, exposes the service histograms and the
     profiler's rows on ``/metrics`` and breaches no SLO; SIGTERM exits 0
     and ``python -m hyperopt_tpu_torch.service fsck`` reports clean.
-24. ``replica_failover``: two ``python -m hyperopt_tpu_torch.service
+23. ``replica_failover``: two ``python -m hyperopt_tpu_torch.service
     --replica-id`` processes (``r1``, ``r2``, lease TTL 3 s) on one root
     and one card.  4 ``tpe`` studies created through a two-replica
     ``ServiceClient`` (names the ring splits 2 and 2), SIGTERM of both
@@ -150,7 +146,7 @@ non-zero without the final line):
     seconds, each takeover's split, the client-seen gap, wall ms per trial
     before and after the kill, ``r2``'s p50/p99 after it, and the
     phase's seconds.
-25. ``mesh``: mesh execution on the one card.  The pair-score kernel's
+24. ``mesh``: mesh execution on the one card.  The pair-score kernel's
     partials launch (one mesh shard's step) against its plain version at
     the main path's shape and a ragged one, its difference against the
     kernel's scores bit for bit, and the combine of sp = 1, 2, 4 shards
@@ -171,28 +167,28 @@ non-zero without the final line):
     busy ms); a one-rank NCCL group (all-reduce MAX and SUM
     of a CUDA tensor, ``global_mesh``); ``TorchTrials(device_fn=...)`` on
     a virtual 2x1 mesh against the unsharded device plane.
-26. ``self_lint``: the port's ``run_self_lint()`` on this machine (no
+25. ``self_lint``: the port's ``run_self_lint()`` on this machine (no
     JAX): race, durability, static program and protocol passes and the
     small-scope model check; no error finding; each section's findings
     and seconds.
-27. ``recompile_audit``: ``audit_tpe_run`` on the card for 200 trials: no
+26. ``recompile_audit``: ``audit_tpe_run`` on the card for 200 trials: no
     PL205 (one compile event per trial-count bucket and family), the
     events per bucket, one pair-score launch per TPE suggest.
-28. ``checkpoint``: ``fmin(trials_save_file=<dir>/run.orbax)`` from the
+27. ``checkpoint``: ``fmin(trials_save_file=<dir>/run.orbax)`` from the
     10,000-trial history for 8 trials, resumed in a fresh ``Trials`` to 16
     with the same ``rstate`` stream: trial for trial an uninterrupted
     16-trial run; the newest step's payload truncated, restore falls back
     to the step before; save ms per step, and at 10,000 trials one step's
     bytes and save ms beside the pickle path's.
-29. ``device_sample_batch``: bench.py's space drawn at n = 65,536 on the
+28. ``device_sample_batch``: bench.py's space drawn at n = 65,536 on the
     card under ``torch.cuda.set_sync_debug_mode("error")`` (no readback):
     the tensors' device, a KS test per label against ``sample_batch``'s
     draw at another seed, ms per draw beside ``sample_batch``'s.
-30. ``quality``: ``scripts/quality_study_torch.py`` at c = 65,536 on the
+29. ``quality``: ``scripts/quality_study_torch.py`` at c = 65,536 on the
     card (four domains, seeds 0-3, 60 trials): each mean regret beside
     the reference's per-seed range in ``QUALITY.json``, its verdict and
     the wall seconds; then ``quality_summary``.
-31. ``train_atpe``: ``python -m hyperopt_tpu_torch.models.train_atpe
+30. ``train_atpe``: ``python -m hyperopt_tpu_torch.models.train_atpe
     --rows-out`` (its ``main``) for one shard of the corpus sweep on the
     card: ``many_dists`` with 20 configs, 8 continuation evals and
     checkpoints 20 28 36 45, seeds 0-1 (the sweep's 13 cut to 2): 8 rows,
@@ -206,7 +202,7 @@ non-zero without the final line):
     one suggest each way; whether sklearn
     imports (where it does not, a fitting run fails naming it before any
     row is built).
-32. ``timing``: each kernel, its plain version and one PyTorch library call
+31. ``timing``: each kernel, its plain version and one PyTorch library call
     computing the same function, by CUDA events at the main-path shape;
     the kernel's device ms per launch (``torch.profiler``); its bound, the
     larger of the f32 operations at the f32 peak, the issue slots and SFU
@@ -220,14 +216,12 @@ observers, a profiler), the heap's and the allocator's counters, the
 card's clocks and use, the host µs of one small CUDA op and the event ms
 of the pair-score kernel.
 
-Every phase but ``fused_probe`` runs with ``HYPEROPT_TPU_FUSED_PROBE=0``,
-so the probe does not change the tier the others measure.  Then the
-``kernels`` line (``pair_lse_partials``' launches are the mesh phase's
+Then the ``kernels`` line (``pair_lse_partials``' launches are the mesh phase's
 main path's; with ``launches_service``, each kernel's launches in
 the service phase's concurrent run, and ``launches_replica_failover``,
 the surviving replica's launches after the kill; ``launches_recompile_audit``,
 ``launches_checkpoint``, ``launches_quality`` and ``launches_train_atpe``,
-those of this order's phases 27, 28, 30 and 31), a ``total`` line with the
+those of this order's phases 26, 27, 29 and 30), a ``total`` line with the
 script's seconds, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of
 ``hyperopt_tpu``; needs one card.
@@ -1084,44 +1078,6 @@ def phase_multi_study(T, counters, rounds=3):
          batched_ms_median=float(np.median(times["batched"])),
          sequential_ms_median=float(np.median(times["sequential"])))
     assert launches["pair_score_batched"] == 2 * len(studies), launches
-    return studies
-
-
-def phase_fused_probe(T, counters, study):
-    """The probe through resolve_scorer on the card with no pin, then one
-    unpinned suggest at the main path's history: it launches the kernel
-    the verdict names, 2 times."""
-    from hyperopt_tpu_torch.ops import fused_kernel
-    from hyperopt_tpu_torch.ops.score import resolve_scorer
-
-    pinned = os.environ.pop("HYPEROPT_TPU_FUSED_PROBE")
-    try:
-        for c in counters:
-            c.launches = 0
-        t0 = time.perf_counter()
-        tier = resolve_scorer(torch.device(DEV))
-        probe_s = time.perf_counter() - t0
-        probe = fused_kernel.probe_result()
-        assert probe is not None and tier == ("fused" if probe["fused"] else "pallas"), probe
-        probe_launches = {c.__name__: c.launches for c in counters}
-        dom, trials, seed = study
-        for c in counters:
-            c.launches = 0
-        docs = T.tpe.suggest([N_HISTORY], dom, trials, seed, n_EI_candidates=N_CAND)
-        torch.cuda.synchronize()
-        check_bench_values({k: v[0] for k, v in docs[0]["misc"]["vals"].items()})
-        launches = {c.__name__: c.launches for c in counters}
-        emit("fused_probe", unfused_ms=probe["unfused_ms"], fused_ms=probe["fused_ms"],
-             verdict=tier, probe_seconds=probe_s, probe_launches=probe_launches,
-             shape=dict(k_total=8224, n_cand=2048, n_labels=4, iters=8),
-             suggest_launches=launches)
-        chosen = "fused_suggest" if tier == "fused" else "pair_score_batched"
-        other = "pair_score_batched" if tier == "fused" else "fused_suggest"
-        assert launches[chosen] == 2 and launches[other] == 0, (tier, launches)
-    finally:
-        os.environ["HYPEROPT_TPU_FUSED_PROBE"] = pinned
-        fused_kernel.set_default_fused(None)
-    return probe
 
 
 @contextlib.contextmanager
@@ -3824,12 +3780,8 @@ def main():
     # the plain versions and the library yardstick run IEEE f32 matmuls
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    for k in ("HYPEROPT_TPU_SCORER", "HYPEROPT_TPU_FUSED", "HYPEROPT_TPU_FUSED_DRAW",
-              "HYPEROPT_MAX_SPECULATION"):
+    for k in ("HYPEROPT_TPU_SCORER", "HYPEROPT_TPU_FUSED_DRAW", "HYPEROPT_MAX_SPECULATION"):
         os.environ.pop(k, None)  # the default tier unless a phase sets one
-    # the fused probe runs in its own phase only: the others keep the tier
-    # they measured before it existed
-    os.environ["HYPEROPT_TPU_FUSED_PROBE"] = "0"
     import hyperopt_tpu_torch as T
     from hyperopt_tpu_torch.ops.fused_kernel import fused_suggest
     from hyperopt_tpu_torch.ops.pair_kernel import (pair_lse_partials, pair_score_batched,
@@ -3854,8 +3806,7 @@ def main():
     single = phase_single_label(counters)
     phase_quickstart(T, counters)
     pipelined = phase_pipelined_main_path(T, counters)
-    studies = phase_multi_study(T, counters)
-    phase_fused_probe(T, counters, studies[0])
+    phase_multi_study(T, counters)
     phase_multi_id_suggest(T, counters, card)
     phase_atpe_path(T, counters)
     phase_anneal_mix(T, counters)

@@ -13,11 +13,10 @@ from l(x), log l − log g scoring, argmax — runs on the device over the
 device-resident history (``tpe_device``), one label-stacked pass per
 distribution family, with the O(candidates × history) pair score in a
 hand-written CUDA kernel.  The scorer tier (``ops.score.resolve_scorer``:
-``HYPEROPT_TPU_SCORER``, ``HYPEROPT_TPU_FUSED``; ``HYPEROPT_TPU_FUSED_DRAW``
-for the fused tier's in-kernel draw) is resolved once per suggest (on the
-card the first resolution runs the fused kernel's timing probe), and
-each suggest publishes its search-health snapshot
-(``diagnostics.last_suggest_diag``).
+``pallas`` unless ``HYPEROPT_TPU_SCORER`` pins another;
+``HYPEROPT_TPU_FUSED_DRAW`` for the fused tier's in-kernel draw) is
+resolved once per suggest, and each suggest publishes its search-health
+snapshot (``diagnostics.last_suggest_diag``).
 
 :func:`suggest_async` launches the same suggest on the card's suggest
 stream and returns a resolver (the speculative engine's dispatch,
@@ -53,9 +52,9 @@ from ..base import miscs_update_idxs_vals
 from ..device import on_suggest_stream, resolve_device, upload
 from ..ops import gmm as gmm_ops
 from ..ops import parzen as parzen_ops
-from ..ops.fused_kernel import resolve_fused_draw
 from ..ops.pair_kernel import pair_score_single
-from ..ops.score import PAIR_CHUNK, pair_params, pair_score, resolve_scorer
+from ..ops.score import (PAIR_CHUNK, pair_params, pair_score, resolve_fused_draw,
+                         resolve_scorer)
 from ..parallel.sharding import resolve_mesh_device
 from ..vectorize import branch_activity, idxs_vals_from_batch
 from . import rand
@@ -267,7 +266,7 @@ def _continuous_best_core(
         above[None], torch.as_tensor([int(n_above)], device=dev), float(prior_weight),
         pm, ps, lf)
     cand = gmm_ops.gmm_sample(u_comp[None], u_val[None], wb, mb, sb, lo, hi, qq, log_scale)
-    scorer = resolve_scorer(dev)
+    scorer = resolve_scorer()
     if quantized or scorer == "exact":
         score = (gmm_ops.gmm_lpdf(cand, wb, mb, sb, lo, hi, qq, log_scale, quantized)
                  - gmm_ops.gmm_lpdf(cand, wa, ma, sa, lo, hi, qq, log_scale, quantized))[0]
@@ -370,7 +369,7 @@ def _suggest_device(
     ``mesh`` (a resolved, non-degenerate ``DeviceMesh``; ``device`` is its
     lead slot): the same path, the history on the lead slot and the
     scoring sharded over the mesh; the tier is the sharded pair scorer,
-    so neither ``HYPEROPT_TPU_SCORER`` nor the fused probe applies.
+    so ``HYPEROPT_TPU_SCORER`` does not apply.
     Reference: ``hyperopt_tpu/algos/tpe.py:619-846``."""
     from . import tpe_device as td
 
@@ -415,7 +414,7 @@ def _suggest_device(
             if mesh is not None:
                 tier = {"scorer": "pallas", "mesh": mesh}
             else:
-                scorer = resolve_scorer(dev)
+                scorer = resolve_scorer()
                 tier = {"scorer": scorer}
                 if scorer == "fused":
                     tier["fused_draw"] = resolve_fused_draw()

@@ -25,13 +25,15 @@ materializes it.  :func:`effective_scorer` picks between them by where the
 tensors lie.
 
 Scorer tiers (:func:`resolve_scorer`, the reference's names and
-``HYPEROPT_TPU_SCORER`` values):
+``HYPEROPT_TPU_SCORER`` values; this module reads every tier switch):
 
-- ``pallas``: the pair-score kernel (``pair_score_batched``), the default;
+- ``pallas``: the pair-score kernel (``pair_score_batched``), the default
+  whenever no tier is pinned;
 - ``xla``: the plain :func:`pair_score`, on whatever device the tensors
   lie;
 - ``fused``: the fused suggest kernel (``ops.fused_kernel``): score,
-  winner and EI partials in one launch;
+  winner and EI partials in one launch; ``HYPEROPT_TPU_FUSED_DRAW=1``
+  (:func:`resolve_fused_draw`) also draws the candidates in the kernel;
 - ``exact``: the normalized ``gmm_lpdf`` difference.
 
 Every tier's kernel wrapper runs its plain version for CPU tensors.
@@ -122,34 +124,25 @@ def pair_score_cost(n_cand: int, k_total: int, scorer: str) -> dict:
     return {"flops": flops, "mxu_flops": mxu, "bytes": nbytes}
 
 
-def env_bool(name: str):
-    """Tri-state env flag: True/False when set (``1/true/yes/on`` are
-    true), None when unset."""
-    v = os.environ.get(name)
-    if v is None:
-        return None
-    return v.strip().lower() in ("1", "true", "yes", "on")
-
-
-def resolve_scorer(device=None) -> str:
-    """The scorer tier of one suggest on ``device``.
-
-    ``HYPEROPT_TPU_SCORER`` (one of :data:`SCORERS`) is honoured verbatim.
-    Without it, a suggest on a CUDA device first runs the fused kernel's
-    timing probe (once per process; ``fused_kernel.maybe_probe_fused``),
-    and the tier is ``fused`` when
-    :func:`~hyperopt_tpu_torch.ops.fused_kernel.resolve_fused` says so,
-    else ``pallas``.  ``device`` None probes nothing.  No TPU verdict
-    carries over."""
+def resolve_scorer() -> str:
+    """The scorer tier of one suggest: ``HYPEROPT_TPU_SCORER`` (one of
+    :data:`SCORERS`) when it is set, else ``pallas``, on every device."""
     forced = os.environ.get("HYPEROPT_TPU_SCORER")
     if forced:
         if forced not in SCORERS:
             raise ValueError(f"HYPEROPT_TPU_SCORER={forced!r}: expected one of {SCORERS}")
         return forced
-    from .fused_kernel import maybe_probe_fused, resolve_fused  # imports this module
+    return "pallas"
 
-    maybe_probe_fused(device)
-    return "fused" if resolve_fused() else "pallas"
+
+def resolve_fused_draw() -> bool:
+    """Should the fused kernel also draw the candidates
+    (``HYPEROPT_TPU_FUSED_DRAW=1``)?  Default off: the in-kernel draw can
+    differ from ``gmm_sample``'s values in the last ulp or two, while the
+    default streams ``gmm_sample``'s own candidates through the kernel.
+    ``1``, ``true``, ``yes`` and ``on`` are true."""
+    value = os.environ.get("HYPEROPT_TPU_FUSED_DRAW", "")
+    return value.strip().lower() in ("1", "true", "yes", "on")
 
 
 def _logsumexp_rows(comp):

@@ -29,6 +29,7 @@ from hyperopt_tpu_torch import diagnostics
 from hyperopt_tpu_torch.algos import tpe as ttpe
 from hyperopt_tpu_torch.algos import tpe_device as ttd
 from hyperopt_tpu_torch.ops import fused_kernel as fk
+from hyperopt_tpu_torch.ops import pair_kernel as pk
 from hyperopt_tpu_torch.ops import score
 from hyperopt_tpu_torch.ops.gmm import draw_param_rows
 from hyperopt_tpu_torch.ops.pair_kernel import pair_score_single
@@ -39,7 +40,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
 import fused_report  # noqa: E402  (scripts/fused_report.py: the shape grid)
 
 EPS32 = np.finfo(np.float32).eps
-SCORER_ENV = ("HYPEROPT_TPU_SCORER", "HYPEROPT_TPU_FUSED", "HYPEROPT_TPU_FUSED_DRAW")
+SCORER_ENV = ("HYPEROPT_TPU_SCORER", "HYPEROPT_TPU_FUSED_DRAW")
 
 
 def ulps(a, b):
@@ -52,7 +53,6 @@ def ulps(a, b):
 def default_tier(monkeypatch):
     for k in SCORER_ENV:
         monkeypatch.delenv(k, raising=False)
-    monkeypatch.setattr(fk, "_fused_measured_default", None)
 
 
 def grid_case(name, kb_real, ka_real, k, n_cand, log_scale, lo, hi, seed=0, L=2):
@@ -247,28 +247,60 @@ def test_cpu_tensors_never_count_a_launch():
 
 def test_resolve_scorer_env_and_measured_default(monkeypatch):
     assert score.resolve_scorer() == "pallas"
-    fk.set_default_fused(True)
-    assert score.resolve_scorer() == "fused"
-    monkeypatch.setenv("HYPEROPT_TPU_FUSED", "0")
-    assert score.resolve_scorer() == "pallas"  # env beats the measured default
-    monkeypatch.setenv("HYPEROPT_TPU_FUSED", "1")
-    fk.set_default_fused(False)
-    assert score.resolve_scorer() == "fused"
-    fk.set_default_fused(None)
-    for forced in score.SCORERS:
-        monkeypatch.setenv("HYPEROPT_TPU_SCORER", forced)
-        assert score.resolve_scorer() == forced  # a pin is honoured verbatim
+    monkeypatch.setenv("HYPEROPT_TPU_SCORER", "")
+    assert score.resolve_scorer() == "pallas"  # an empty pin is no pin
     monkeypatch.setenv("HYPEROPT_TPU_SCORER", "mxu")
     with pytest.raises(ValueError, match="HYPEROPT_TPU_SCORER"):
         score.resolve_scorer()
 
 
 def test_resolve_fused_draw(monkeypatch):
-    assert fk.resolve_fused_draw() is False
+    assert score.resolve_fused_draw() is False
     monkeypatch.setenv("HYPEROPT_TPU_FUSED_DRAW", "1")
-    assert fk.resolve_fused_draw() is True
+    assert score.resolve_fused_draw() is True
     monkeypatch.setenv("HYPEROPT_TPU_FUSED_DRAW", "off")
-    assert fk.resolve_fused_draw() is False
+    assert score.resolve_fused_draw() is False
+
+
+def _no_launch(monkeypatch):
+    """Make either scorer kernel raise if anything launches it."""
+    def launched(*args, **kwargs):
+        raise AssertionError("resolving the tier launched a kernel")
+
+    monkeypatch.setattr(pk, "pair_score_batched", launched)
+    monkeypatch.setattr(fk, "fused_suggest", launched)
+
+
+@pytest.mark.parametrize("pin", [None, *score.SCORERS])
+def test_the_tier_is_the_pin_else_pallas(monkeypatch, pin):
+    """The tier is ``HYPEROPT_TPU_SCORER`` verbatim, else ``pallas``; no
+    kernel is launched or timed to decide it."""
+    _no_launch(monkeypatch)
+    if pin is not None:
+        monkeypatch.setenv("HYPEROPT_TPU_SCORER", pin)
+    assert score.resolve_scorer() == (pin or "pallas")
+
+
+@pytest.mark.parametrize("env", [
+    {"HYPEROPT_TPU_FUSED": "1"}, {"HYPEROPT_TPU_FUSED": "0"},
+    {"HYPEROPT_TPU_FUSED_PROBE": "0"},
+], ids=["fused_on", "fused_off", "probe_off"])
+def test_the_retired_switches_change_nothing(monkeypatch, env):
+    _no_launch(monkeypatch)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    assert score.resolve_scorer() == "pallas"
+    assert fk.probe_result() == {"fused": False}
+
+
+@pytest.mark.parametrize("pin,expect", [
+    (None, {"fused": False}), ("fused", {"fused": True}), ("xla", None),
+], ids=["unset", "fused", "xla"])
+def test_probe_result_names_the_tier_in_use(monkeypatch, pin, expect):
+    _no_launch(monkeypatch)
+    if pin is not None:
+        monkeypatch.setenv("HYPEROPT_TPU_SCORER", pin)
+    assert fk.probe_result() == expect
 
 
 # -- the slice through tpe.suggest ---------------------------------------
@@ -302,9 +334,8 @@ def suggest_on(monkeypatch, history, env, seed=5):
 @pytest.mark.parametrize("env", [
     {"HYPEROPT_TPU_SCORER": "fused"},
     {"HYPEROPT_TPU_SCORER": "fused", "HYPEROPT_TPU_FUSED_DRAW": "1"},
-    {"HYPEROPT_TPU_FUSED": "1"},
     {"HYPEROPT_TPU_SCORER": "xla"},
-], ids=["fused", "fused_draw", "fused_promoted", "xla"])
+], ids=["fused", "fused_draw", "xla"])
 def test_suggest_docs_equal_default_tier(monkeypatch, history, env):
     """The fused tier's (and the plain tier's) trial docs equal the default
     tier's for one history and seed, and the search-health row keeps its

@@ -293,7 +293,7 @@ def test_eight_id_suggest_on_card_agrees_with_cpu(cuda, monkeypatch):
     import chip_smoke as cs
     import hyperopt_tpu_torch as T
 
-    monkeypatch.setenv("HYPEROPT_TPU_SCORER", "pallas")  # no probe: the pair-score kernel
+    monkeypatch.setenv("HYPEROPT_TPU_SCORER", "pallas")  # the pair-score kernel
     trials = cs.prefilled_trials(T, 3000)
     domain = T.Domain(cs.bench_objective, cs.bench_space(T.hp))
     ids = list(range(3000, 3008))
@@ -345,7 +345,7 @@ def test_file_trials_with_threaded_workers_on_card(cuda, monkeypatch, tmp_path):
     import hyperopt_tpu_torch as T
     from hyperopt_tpu_torch.parallel.worker import FileWorker, ReserveTimeout
 
-    monkeypatch.setenv("HYPEROPT_TPU_SCORER", "pallas")  # no probe: the pair-score kernel
+    monkeypatch.setenv("HYPEROPT_TPU_SCORER", "pallas")  # the pair-score kernel
     qdir = str(tmp_path / "q")
     trials = T.FileTrials(qdir)
     assert trials.new_trial_ids(2000) == list(range(2000))
@@ -535,7 +535,7 @@ def test_device_recovery_with_a_real_oom_on_card(cuda, monkeypatch):
     import chip_smoke as cs
     import hyperopt_tpu_torch as T
 
-    monkeypatch.setenv("HYPEROPT_TPU_SCORER", "pallas")  # no probe: the pair-score kernel
+    monkeypatch.setenv("HYPEROPT_TPU_SCORER", "pallas")  # the pair-score kernel
     _, ref = _pipelined_run(T, cs)
     seen = []
 
@@ -605,7 +605,7 @@ def test_service_batched_dispatch_on_card(cuda, monkeypatch):
     from hyperopt_tpu_torch.fmin import space_eval
     from hyperopt_tpu_torch.service import OptimizationService
 
-    monkeypatch.setenv("HYPEROPT_TPU_SCORER", "pallas")  # no probe: the pair-score kernel
+    monkeypatch.setenv("HYPEROPT_TPU_SCORER", "pallas")  # the pair-score kernel
     space = cs.bench_space(T.hp)
     ap = {"n_startup_jobs": 4, "n_EI_candidates": 1024}
     svc = OptimizationService(root=None, device="cuda", batch_window=0.05, warmup=False)
@@ -672,7 +672,7 @@ def test_replica_takeover_prewarms_on_card_and_continues_the_trajectory(cuda, mo
     from hyperopt_tpu_torch.fmin import space_eval
     from hyperopt_tpu_torch.service import OptimizationService
 
-    monkeypatch.setenv("HYPEROPT_TPU_SCORER", "pallas")  # no probe: the pair-score kernel
+    monkeypatch.setenv("HYPEROPT_TPU_SCORER", "pallas")  # the pair-score kernel
     space = cs.bench_space(T.hp)
     ap = {"n_startup_jobs": 4, "n_EI_candidates": 1024}
     n_pre, n_post = 10, 4  # every suggest after the crash in one history bucket (16)

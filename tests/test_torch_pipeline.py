@@ -1,9 +1,8 @@
 """The port's speculative suggest engine (``hyperopt_tpu_torch.pipeline``)
-and pipelined ``fmin`` on the CPU, the fused timing probe's gating, and
-the engine's host-side policy and validity checks against the JAX
-package's on the same trials (mirrors tests/test_pipeline.py:74-332)."""
+and pipelined ``fmin`` on the CPU, and the engine's host-side policy and
+validity checks against the JAX package's on the same trials (mirrors
+tests/test_pipeline.py:74-332)."""
 
-import contextlib
 import importlib
 import itertools
 import threading
@@ -19,9 +18,6 @@ import hyperopt_tpu_torch as T
 from hyperopt_tpu import pipeline as jpipe
 from hyperopt_tpu_torch import pipeline
 from hyperopt_tpu_torch.algos import tpe
-from hyperopt_tpu_torch.ops import fused_kernel as fk
-from hyperopt_tpu_torch.ops import pair_kernel as pk
-from hyperopt_tpu_torch.ops import score
 
 # the modules, not the ``fmin`` functions the packages re-export
 jfmin_mod = importlib.import_module("hyperopt_tpu.fmin")
@@ -360,90 +356,3 @@ def test_hyp_still_valid_matches_jax(case):
         decisions.append(eng._still_valid(snap))
     assert decisions[0] == decisions[1]
     assert decisions[0] == (case in ("lands_above", "still_running"))
-
-
-# -- the fused timing probe -------------------------------------------------------
-
-PROBE_ENV = ("HYPEROPT_TPU_SCORER", "HYPEROPT_TPU_FUSED", "HYPEROPT_TPU_FUSED_PROBE")
-CUDA = torch.device("cuda")  # a device object only: nothing here touches a card
-SMALL = dict(k_total=96, n_cand=64, n_labels=2, iters=2)
-
-
-@pytest.fixture
-def probe_state(monkeypatch):
-    for k in PROBE_ENV:
-        monkeypatch.delenv(k, raising=False)
-    fk._probe = None
-    fk.set_default_fused(None)
-    yield
-    fk._probe = None
-    fk.set_default_fused(None)
-
-
-def _fake_card(monkeypatch, times):
-    """Route the probe to the CPU's plain versions at small shapes, with
-    ``_chain_ms`` returning ``times`` (unfused, fused) in turn; returns the
-    list of devices the probe ran for."""
-    runs, real, ms = [], fk.fused_timing_probe, iter(times)
-
-    def chain_ms(fn, iters):
-        fn()
-        return next(ms)
-
-    def probe(device):
-        runs.append(device)
-        return real(torch.device("cpu"), **SMALL)
-
-    monkeypatch.setattr(fk, "_chain_ms", chain_ms)
-    monkeypatch.setattr(fk, "fused_timing_probe", probe)
-    monkeypatch.setattr(fk, "on_suggest_stream", lambda device: contextlib.nullcontext())
-    return runs
-
-
-@pytest.mark.parametrize("times,tier", [((0.3, 0.1), "fused"), ((0.1, 0.3), "pallas")])
-def test_probe_verdict_sets_default(monkeypatch, probe_state, times, tier):
-    runs = _fake_card(monkeypatch, times)
-    assert score.resolve_scorer(CUDA) == tier
-    assert score.resolve_scorer(CUDA) == tier  # once per process
-    assert runs == [CUDA]
-    assert fk.probe_result() == {"unfused_ms": times[0], "fused_ms": times[1],
-                                 "fused": tier == "fused"}
-    assert fk.resolve_fused() is (tier == "fused")
-
-
-def test_probe_never_runs_on_cpu(monkeypatch, probe_state):
-    runs = _fake_card(monkeypatch, (0.3, 0.1))
-    assert score.resolve_scorer(torch.device("cpu")) == "pallas"
-    assert score.resolve_scorer() == "pallas"
-    dom = T.Domain(_quadratic, SPACE)
-    trials = _run(0, max_evals=8)
-    FAST_TPE([8], dom, trials, 1)
-    assert runs == [] and fk.probe_result() is None
-
-
-@pytest.mark.parametrize("env", [
-    {"HYPEROPT_TPU_FUSED_PROBE": "0"}, {"HYPEROPT_TPU_FUSED": "0"},
-    {"HYPEROPT_TPU_FUSED": "1"}, {"HYPEROPT_TPU_SCORER": "pallas"},
-], ids=["probe_off", "fused_off", "fused_on", "scorer_pin"])
-def test_env_pins_skip_the_probe(monkeypatch, probe_state, env):
-    runs = _fake_card(monkeypatch, (0.3, 0.1))
-    for k, v in env.items():
-        monkeypatch.setenv(k, v)
-    expect = "fused" if env.get("HYPEROPT_TPU_FUSED") == "1" else "pallas"
-    assert score.resolve_scorer(CUDA) == expect
-    assert runs == [] and fk.probe_result() is None
-
-
-def test_probe_kernel_failure_propagates(monkeypatch, probe_state):
-    """A kernel that fails inside the probe raises through resolve_scorer;
-    no tier is recorded and the next suggest probes again."""
-    _fake_card(monkeypatch, (0.3, 0.1, 0.3, 0.1))
-
-    def broken(*args, **kwargs):
-        raise RuntimeError("pair_score kernel launch failed: CUDA error 98")
-
-    monkeypatch.setattr(pk, "pair_score_batched", broken)
-    for _ in range(2):
-        with pytest.raises(RuntimeError, match="CUDA error 98"):
-            score.resolve_scorer(CUDA)
-    assert fk.probe_result() is None and fk._fused_measured_default is None
