@@ -223,6 +223,10 @@ class SpeculativeSuggestEngine:
         # Survives discard(): these are unlaunched protocol state, not
         # in-flight device work.
         self._spare = deque()  # guarded-by: _dispatch_lock
+        # documents the validity checks of the last _validate walked (the
+        # pipeline.validate span's n_walked): 0 where each hypothesized
+        # trial was read at the position its launch recorded
+        self._n_walked = 0  # guarded-by: _dispatch_lock
 
     # -- snapshot / validation ----------------------------------------
     def _snapshot(self):
@@ -300,8 +304,12 @@ class SpeculativeSuggestEngine:
         running keep the speculation valid — consuming it then is the
         async plane's fantasy mode; the serial fmin loop always consumes
         after the completion, where these checks certify bit-for-bit
-        equality with the serial suggestion."""
-        _, n0, nb_fit, hyp_tids, cv, hist_ref = snap
+        equality with the serial suggestion.
+
+        O(k) in the k losses appended since the launch: the hypothesized
+        trials are read at the positions the launch recorded, and the
+        appended losses are compared with the rank threshold it took."""
+        _, n0, nb_fit, hyp_tids, cv, hist_ref, positions, thr32 = snap
         if hist_ref() is not hist:
             return False  # swapped-in history: counters not comparable
         if cv is not None and getattr(hist, "last_nonappend_version", 0) > cv:
@@ -309,27 +317,40 @@ class SpeculativeSuggestEngine:
         if n_now < n0:
             return False
         done_tids = {int(t) for t in hist.loss_tids[n0:]}
-        hyp_set = set(hyp_tids)
-        still_out = 0
-        for t in self.trials._dynamic_trials:
-            tid = int(t["tid"])
-            if tid in hyp_set and tid not in done_tids:
-                if t["state"] in (JOB_STATE_NEW, JOB_STATE_RUNNING):
-                    still_out += 1
-                else:
-                    return False
+        docs = self.trials._dynamic_trials
+        open_hyp = [(tid, pos) for tid, pos in zip(hyp_tids, positions)
+                    if tid not in done_tids]
+        if all(pos < len(docs) and int(docs[pos]["tid"]) == tid
+               for tid, pos in open_hyp):
+            states = [docs[pos]["state"] for _, pos in open_hyp]
+        else:
+            # the store shortened, rebuilt or reordered its list since the
+            # launch: find the hypothesized trials by walking it
+            hyp_set = set(hyp_tids)
+            self._n_walked += len(docs)  # lint: disable=RL301
+            states = [t["state"] for t in docs
+                      if int(t["tid"]) in hyp_set and int(t["tid"]) not in done_tids]
+        if any(st not in (JOB_STATE_NEW, JOB_STATE_RUNNING) for st in states):
+            return False
         p = self.policy_params
-        if _n_below(n_now + still_out, p["gamma"],
+        if _n_below(n_now + len(states), p["gamma"],
                     p["linear_forgetting"]) != nb_fit:
             return False
-        if n_now > n0:
-            losses = np.asarray(hist.losses[:n_now], dtype=np.float32)
-            order = np.argsort(losses, kind="stable")  # NaN ranks last
-            ranks = np.empty(n_now, np.int64)
-            ranks[order] = np.arange(n_now)
-            if np.any(ranks[n0:] < nb_fit):
-                return False
-        return True
+        if n_now == n0:
+            return True
+        new32 = np.asarray(hist.losses[n0:n_now], dtype=np.float32)
+        if cv is not None and not np.isnan(thr32) and not np.isnan(new32).any():
+            # the earliest of the smallest appended losses ranks lowest of
+            # them, right after the real losses <= it: inside the first
+            # nb_fit iff it is below the nb_fit-th smallest real loss
+            return not new32.min() < thr32
+        # NaN ranks last, and a history without version counters may have
+        # changed under the threshold: rank all of it
+        losses = np.asarray(hist.losses[:n_now], dtype=np.float32)
+        order = np.argsort(losses, kind="stable")
+        ranks = np.empty(n_now, np.int64)
+        ranks[order] = np.arange(n_now)
+        return not np.any(ranks[n0:] < nb_fit)
 
     def _validate(self, exposed=False):
         """Relaunch every pending speculation the current history has
@@ -337,6 +358,7 @@ class SpeculativeSuggestEngine:
         the caller is on the fmin loop's critical path (consume time), so
         relaunch cost must not be booked as hidden time.  Returns how many
         speculations it invalidated."""
+        self._n_walked = 0  # lint: disable=RL301
         with self._pending_lock:
             if not self._pending:
                 return 0
@@ -407,7 +429,7 @@ class SpeculativeSuggestEngine:
         if len(self.trials.trials) < p["n_startup_jobs"] or n0 == 0:
             return self._launch(ids, seed), ("startup",)
         pending = [
-            t for t in self.trials._dynamic_trials
+            (pos, t) for pos, t in enumerate(self.trials._dynamic_trials)
             if t["state"] in (JOB_STATE_NEW, JOB_STATE_RUNNING)
         ]
         nb_fit = _n_below(
@@ -420,12 +442,20 @@ class SpeculativeSuggestEngine:
             cv = getattr(hist, "content_version", None)
             resolve = self._algo_async(
                 ids, self.domain, self.trials, seed,
-                pending=[t["misc"]["vals"] for t in pending],
+                pending=[t["misc"]["vals"] for _, t in pending],
             )
+            # what the validity check reads in O(k): where each pending
+            # trial sits in the list, and the nb_fit-th smallest real loss
+            # in float32 (NaN where fewer are not NaN: the check then
+            # ranks them all, as it does for a NaN appended loss)
+            losses32 = np.asarray(hist.losses[:n0], dtype=np.float32)
+            thr32 = (np.partition(losses32, nb_fit - 1)[nb_fit - 1]
+                     if nb_fit else np.float32(-np.inf))
             snap = (
                 "hyp", n0, nb_fit,
-                tuple(int(t["tid"]) for t in pending), cv,
+                tuple(int(t["tid"]) for _, t in pending), cv,
                 weakref.ref(hist),
+                tuple(pos for pos, _ in pending), thr32,
             )
             return resolve, snap
         return self._launch(ids, seed), self._snapshot()
@@ -458,6 +488,7 @@ class SpeculativeSuggestEngine:
             loop_refresh(self.trials)
             with tracing.span("pipeline.validate") as vspan:
                 vspan.set_attr("n_invalidated", self._validate())
+                vspan.set_attr("n_walked", self._n_walked)
             n_launched = n_hypothesis = 0
             while True:
                 with self._pending_lock:
@@ -505,6 +536,7 @@ class SpeculativeSuggestEngine:
         with self._dispatch_lock:
             with tracing.span("pipeline.validate") as vspan:
                 vspan.set_attr("n_invalidated", self._validate(exposed=True))
+                vspan.set_attr("n_walked", self._n_walked)
             docs, ids = [], []
             while True:
                 with self._pending_lock:

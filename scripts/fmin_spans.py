@@ -25,7 +25,10 @@ its children on its own thread.
     walked;
   - ``scan.tally_share``: the share of ``fmin.scan`` spans that walked no
     document (``n_walked`` 0: the counts and the best loss came from the
-    refresh's tallies).
+    refresh's tallies);
+  - ``validate.walk_share``: the share of ``pipeline.validate`` spans that
+    walked any document (``n_walked`` > 0: a hypothesized trial was not
+    at the position its launch recorded).
 
 - ``exclusive_ms``: each span name's exclusive time per trial;
   ``trials.refresh@<parent>`` splits the refreshes by call site.
@@ -88,6 +91,7 @@ def readings(traces):
     walked = []   # n_walked of the incremental refreshes
     n_walk_counted = 0
     scans = []    # n_walked of the scans
+    validates = []  # n_walked of the validity checks
     for spans in traces:
         ex = exclusive(spans)
         names = {s["id"]: s["name"] for s in spans}
@@ -104,6 +108,8 @@ def readings(traces):
                         walked.append(attrs["n_walked"])
             elif s["name"] == "fmin.scan" and "n_walked" in attrs:
                 scans.append(attrs["n_walked"])
+            elif s["name"] == "pipeline.validate" and "n_walked" in attrs:
+                validates.append(attrs["n_walked"])
         ends = defaultdict(float)
         for s in spans:
             ends[s["name"]] = max(ends[s["name"]], s["t1"])
@@ -122,6 +128,8 @@ def readings(traces):
         out["refresh.incremental_walked_max"] = max(walked, default=None)
     if scans:
         out["scan.tally_share"] = scans.count(0) / len(scans)
+    if validates:
+        out["validate.walk_share"] = sum(w > 0 for w in validates) / len(validates)
     n_suggests = count["suggest.build"]
     if n_suggests:
         out["suggest.prep_ms"] = 1e3 * (excl["suggest.history"] + excl["suggest.build"]) / n_suggests

@@ -320,6 +320,24 @@ def test_the_tally_share_of_known_scans():
     assert "scan.tally_share" not in S.readings([one_trial()])[0]
 
 
+def test_the_walk_share_of_known_validations():
+    """``pipeline.validate``'s ``n_walked``: the share of validity checks
+    that walked any document, and the attribute's mean and total in
+    ``counts``; no share where no check records it."""
+    traces = [one_trial(0.0), one_trial(1.0)]
+    for spans, t, walked in zip(traces, (0.0, 1.0), ((0, 0), (0, 120))):
+        spans += [span("pipeline.validate", 17, 2, t + 0.0005, t + 0.001, n_invalidated=0,
+                       n_walked=walked[0]),
+                  span("pipeline.validate", 18, 8, t + 0.012, t + 0.012, n_invalidated=0,
+                       n_walked=walked[1])]
+    values, _ = S.readings(traces)
+    assert values["validate.walk_share"] == pytest.approx(1 / 4)
+    _, counts = S.counters(traces)
+    assert counts["pipeline.validate.n_walked"] == {"mean": pytest.approx(30.0),
+                                                    "per_trial": pytest.approx(60.0)}
+    assert "validate.walk_share" not in S.readings([one_trial()])[0]
+
+
 def test_the_slowest_trials_name_their_study_size_tid_and_largest_span():
     fast = one_trial(0.0, 100)
     slow = one_trial(1.0, 101)
@@ -363,4 +381,5 @@ def test_the_report_reads_every_counter_of_a_traced_study(k, tmp_path):
             out["exclusive_ms"]["fmin.checkpoint"])}}
     if k:
         assert "pipeline.validate.n_invalidated" in out["counts"]
+        assert out["readings"]["validate.walk_share"] == 0.0
         assert out["counts"]["pipeline.speculate.n_launched"]["per_trial"] > 0

@@ -279,7 +279,8 @@ def _engines(n, running=0):
             + [_doc(n + j, float(xs[n + j]), state=1) for j in range(running)])
         trials.refresh()
         domain = pkg.Domain(_quadratic, {"x": pkg.hp.uniform("x", -5, 5)})
-        out.append(mod.SpeculativeSuggestEngine(pkg.tpe.suggest, domain, trials,
+        algo = pkg.tpe.suggest if pkg is J else partial(T.tpe.suggest, device="cpu")
+        out.append(mod.SpeculativeSuggestEngine(algo, domain, trials,
                                                 np.random.default_rng(0)))
     return out
 
@@ -344,13 +345,19 @@ HYP_CASES = {  # how the one hypothesized in-flight trial ends
 def test_hyp_still_valid_matches_jax(case):
     """A lands-above hypothesis snapshot: both packages keep or drop it
     alike when the hypothesized trial lands above, below, errors or is
-    still running."""
+    still running.  The port's snapshot adds what its O(k) check reads
+    (the trial's position, the rank threshold), so it comes from the
+    port's own launch, on the same six fields as the JAX package's."""
     state, loss = HYP_CASES[case]
     decisions = []
     for eng, mod in zip(_engines(60, running=1), (jpipe, pipeline)):
         hist = eng.trials.history
         nb_fit = mod._n_below(61, 0.25, 25)
         snap = ("hyp", 60, nb_fit, (60,), hist.content_version, weakref.ref(hist))
+        if mod is pipeline:
+            _, launched = eng._launch_spec([61], 0)
+            assert launched[:6] == snap and launched[6] == (60,)
+            snap = launched
         if state != 1:
             _complete(eng, 60, loss, state)
         decisions.append(eng._still_valid(snap))
